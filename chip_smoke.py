@@ -4,19 +4,25 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Phases (each prints one JSON line; any failure exits non-zero):
+Phases (each prints JSON lines; any failure exits non-zero):
 
 1. device   — the card (``nvidia-smi`` name and power limit), torch and
                CUDA versions; TF32 is switched off for matmuls and cuDNN.
-2. build    — compiles every kernel of the path from ``src/repro_torch/csrc``
-               with ``nvcc`` (one process per source, all started together).
-3. kernels  — each kernel against its plain torch version on the card, at
-               the main path's shapes and on edge cases (ragged rows,
-               NaN/±inf, one tree); max |difference| must be 0.  Times the
-               kernel and the plain version with CUDA events.
-4. main     — the port's main path, as a user drives it: a ``ModelStore``
-               on the card holding the hospital tables at 1,000,000 patients
-               each, a 64-tree depth-8 random forest over quickstart's seven
+2. build    — compiles every kernel of both paths from
+               ``src/repro_torch/csrc`` with ``nvcc`` (one process per
+               source, all started together).
+3. kernels  — each kernel against its plain torch version on the card:
+               tree_gemm bitwise at the query path's shapes and on edge
+               cases (ragged rows, NaN/±inf, one tree); flash_attention and
+               decode_attention within 2e-5 (float32) and 2e-2 (bfloat16)
+               over GQA groups 1, 2 and 4, head dims 64, 128 and 256,
+               causal / window 64 / softcap 30 / bidirectional, ragged S, T
+               and cache lengths.  Times each kernel, its plain version and
+               (where one exists) the one PyTorch call that computes the
+               same function, with CUDA events, at the main paths' shapes.
+4. main     — the query path, as a user drives it: a ``ModelStore`` on the
+               card holding the hospital tables at 1,000,000 patients each,
+               a 64-tree depth-8 random forest over quickstart's seven
                features, and three SQL ``PREDICT`` queries, each optimized
                with the tree strategy forced to traversal, dense GEMM, the
                CUDA kernel, and left to the measured crossover ("auto").
@@ -24,6 +30,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
                count must rise.
 5. check    — query (a) run on the card equals the same query run by the
                port on the CPU with traversal, bitwise.
+6. lm       — the LM path: MiniCPM-2B at full width (40 layers, random
+               bfloat16 weights from a seeded generator on the card) served
+               by ``InferenceEngine`` with 4 slots and max_len 1024: eight
+               greedy requests (prompts of 113-699 tokens, one repeated to
+               hit the prefix cache), 32 new tokens each.  Every prefill
+               must launch flash_attention once per layer and every decode
+               step decode_attention once per layer.
+7. lm_check — one request's output alone equals its output in the full
+               batch; the card's prefill logits for one prompt, through the
+               first 2 layers at full width, agree with the port's CPU run
+               of the same weights within 5% of the largest CPU logit, and
+               their greedy tokens agree where the CPU margin is clear.
 
 Then one ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
 {...}}``.  The script imports nothing of JAX or of the JAX package.
@@ -58,9 +76,24 @@ QUERIES = {
          "GROUP BY gender",
 }
 STRATEGIES = ("traversal", "gemm", "cuda", "auto")
-# H100 SXM peaks (NVIDIA data sheet, 700 W): float32 on CUDA cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet, 700 W): float32 on CUDA cores, dense
+# bfloat16 on tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+
+# The LM path: MiniCPM-2B at full width, served by InferenceEngine.
+LM_ARCH = "minicpm-2b"
+LM_SEED = 0
+LM_SLOTS, LM_MAX_LEN, LM_NEW_TOKENS = 4, 1024, 32
+# Prompt lengths between 100 and 700, none a multiple of 128; the last
+# request repeats the first prompt, so it hits the prefix cache.
+LM_PROMPT_LENS = (113, 245, 333, 402, 517, 590, 699)
+LM_REPEAT = 0
+LM_ALONE = 2          # the request also served alone
+LM_CHECK_LAYERS = 2   # depth of the card-vs-CPU logits check
+LM_CHECK_REL = 0.05   # its tolerance, relative to the largest CPU logit
+ATT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def emit(obj) -> None:
@@ -106,6 +139,7 @@ def phase_device():
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
                          torch.backends.cudnn.allow_tf32]})
+    return smi
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -113,8 +147,14 @@ def phase_device():
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.kernels.decode_attention import \
+        decode_attention as da_build
+    from repro_torch.kernels.flash_attention import \
+        flash_attention as fa_build
     from repro_torch.kernels.tree_gemm import tree_gemm as tg_build
-    builders = {"tree_gemm": tg_build.build}
+    builders = {"tree_gemm": tg_build.build,
+                "flash_attention": fa_build.build,
+                "decode_attention": da_build.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as pool:
         futures = {k: pool.submit(fn) for k, fn in builders.items()}
@@ -363,6 +403,375 @@ def phase_check(tables, pipe, outs):
         fail(f"query (a) on the card differs from the CPU: {equal}")
 
 
+# -- phase 3, attention ------------------------------------------------------
+
+FLASH_SHAPES = [  # (b, s, t, h, kv, d): groups 1, 2, 4; S, T off the tile
+    (2, 193, 193, 4, 4, 64),
+    (1, 130, 130, 8, 4, 128),
+    (2, 77, 77, 8, 2, 256),
+    (1, 100, 300, 4, 1, 128),
+]
+FLASH_MASKS = [("causal", True, 0, 0.0), ("window64", True, 64, 0.0),
+               ("softcap30", True, 0, 30.0), ("bidir", False, 0, 0.0)]
+DECODE_SHAPES = [  # (b, t, h, kv, d): groups 1, 4, 2, 2, 5
+    (4, 1024, 36, 36, 64), (3, 777, 8, 2, 128), (2, 300, 8, 4, 256),
+    (3, 129, 8, 4, 64), (2, 50, 40, 8, 128),
+]
+
+
+def flash_bound_ms(b, s, t, h, kv, d, causal, itemsize, peak_flops):
+    """Least time: q, k, v read once and out written once over HBM
+    bandwidth, or 4*d flops per visible (query, key) pair over the peak for
+    the inputs' type, whichever is larger."""
+    pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
+    flops = 4.0 * d * pairs * b * h
+    nbytes = itemsize * (2 * b * s * h * d + 2 * b * t * kv * d)
+    by_ops, by_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
+    return (max(by_ops, by_bytes) * 1e3,
+            "operations" if by_ops >= by_bytes else "bytes")
+
+
+def decode_bound_ms(lens, h, kv, d, itemsize, peak_flops):
+    """Least time: the valid cache rows of k and v, q, cache_len and out
+    moved once, or 4*d flops per (valid slot, query head)."""
+    b, valid = len(lens), sum(lens)
+    flops = 4.0 * d * valid * h
+    nbytes = itemsize * (2 * valid * kv * d + 2 * b * h * d) + 4 * b
+    by_ops, by_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
+    return (max(by_ops, by_bytes) * 1e3,
+            "operations" if by_ops >= by_bytes else "bytes")
+
+
+def phase_attention_kernels(engine_lens):
+    """flash_attention and decode_attention against their plain versions on
+    the card over every option, then timed at the LM path's shapes: one
+    prefill of the longest prompt (B 1, S = T = 699, 36 heads of 64,
+    bfloat16, causal) and one decode step (B 4, T 1024, ``engine_lens``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as d_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for (b, s, t, h, kv, d) in FLASH_SHAPES:
+            q, k, v = (randn((b, s, h, d), dtype), randn((b, t, kv, d), dtype),
+                       randn((b, t, kv, d), dtype))
+            for mname, causal, window, cap in FLASH_MASKS:
+                got = f_ops.flash_attention(q, k, v, causal, window, cap)
+                want = attention_ref(q, k, v, causal, window, cap)
+                torch.cuda.synchronize()
+                if got.dtype != dtype or not torch.isfinite(got).all():
+                    fail(f"flash_attention {dname} {mname}: output "
+                         f"{got.dtype} not finite")
+                err = float((got.float() - want.float()).abs().max())
+                emit({"phase": "kernels", "kernel": "flash_attention",
+                      "dtype": dname, "mask": mname, "groups": h // kv,
+                      "shape": {"q": [b, s, h, d], "kv": [b, t, kv, d]},
+                      "max_abs_err": err, "tol": ATT_TOL[dname]})
+                if err > ATT_TOL[dname]:
+                    fail(f"flash_attention {dname} {mname} {(b, s, t, h, kv, d)}"
+                         f" differs from its plain version by {err}")
+                worst["flash_attention"] = max(worst["flash_attention"], err)
+        for (b, t, h, kv, d) in DECODE_SHAPES:
+            q, k, v = (randn((b, 1, h, d), dtype), randn((b, t, kv, d), dtype),
+                       randn((b, t, kv, d), dtype))
+            lens = torch.randint(1, t + 1, (b,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            lens[0] = 1
+            for cap in (0.0, 30.0):
+                got = d_ops.decode_attention(q, k, v, lens, cap)
+                want = decode_attention_ref(q, k, v, lens, cap)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    fail(f"decode_attention {dname}: output not finite")
+                err = float((got.float() - want.float()).abs().max())
+                emit({"phase": "kernels", "kernel": "decode_attention",
+                      "dtype": dname, "softcap": cap, "groups": h // kv,
+                      "shape": {"q": [b, 1, h, d], "cache": [b, t, kv, d]},
+                      "cache_len": lens.tolist(), "max_abs_err": err,
+                      "tol": ATT_TOL[dname]})
+                if err > ATT_TOL[dname]:
+                    fail(f"decode_attention {dname} {(b, t, h, kv, d)} "
+                         f"softcap {cap} differs from its plain version by "
+                         f"{err}")
+                worst["decode_attention"] = max(worst["decode_attention"],
+                                                err)
+
+    # Timings at the LM path's shapes (MiniCPM-2B: 36 heads of 64, MHA).
+    bf16 = torch.bfloat16
+    s = max(LM_PROMPT_LENS)
+    q, k, v = (randn((1, s, 36, 64), bf16) for _ in range(3))
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    err = float((f_ops.flash_attention(q, k, v).float()
+                 - attention_ref(q, k, v).float()).abs().max())
+    if err > ATT_TOL["bfloat16"]:
+        fail(f"flash_attention at the engine's shape differs by {err}")
+    bound, by = flash_bound_ms(1, s, s, 36, 36, 64, True, 2, PEAK_BF16_FLOPS)
+    flash_row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:113",
+        "max_abs_err": max(worst["flash_attention"], err),
+        "ms": cuda_ms(lambda: f_ops.flash_attention(q, k, v), runs=20),
+        "plain_ms": cuda_ms(lambda: attention_ref(q, k, v)),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True), runs=20)}
+    emit({"phase": "kernels", "kernel": "flash_attention",
+          "timing": flash_row, "q": [1, s, 36, 64], "dtype": "bfloat16"})
+
+    b, t = LM_SLOTS, LM_MAX_LEN
+    q = randn((b, 1, 36, 64), bf16)
+    kc, vc = randn((b, t, 36, 64), bf16), randn((b, t, 36, 64), bf16)
+    lens = torch.tensor(engine_lens, dtype=torch.int32, device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None])[:, None,
+                                                                  None, :]
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
+    err = float((d_ops.decode_attention(q, kc, vc, lens).float()
+                 - decode_attention_ref(q, kc, vc, lens).float()).abs().max())
+    if err > ATT_TOL["bfloat16"]:
+        fail(f"decode_attention at the engine's shape differs by {err}")
+    bound, by = decode_bound_ms(list(engine_lens), 36, 36, 64, 2,
+                                PEAK_BF16_FLOPS)
+    decode_row = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces":
+            "src/repro/kernels/decode_attention/decode_attention.py:91",
+        "max_abs_err": max(worst["decode_attention"], err),
+        "ms": cuda_ms(lambda: d_ops.decode_attention(q, kc, vc, lens),
+                      runs=20),
+        "plain_ms": cuda_ms(lambda: decode_attention_ref(q, kc, vc, lens)),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=True), runs=20)}
+    emit({"phase": "kernels", "kernel": "decode_attention",
+          "timing": decode_row, "q": [b, 1, 36, 64], "cache": [b, t, 36, 64],
+          "cache_len": list(engine_lens), "dtype": "bfloat16"})
+    return flash_row, decode_row
+
+
+# -- phases 6 and 7 ------------------------------------------------------------
+
+def lm_prompts():
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    rng = np.random.default_rng(LM_SEED)
+    vocab = get_config(LM_ARCH).vocab_size
+    prompts = [rng.integers(0, vocab, n).astype(np.int32)
+               for n in LM_PROMPT_LENS]
+    return prompts + [prompts[LM_REPEAT].copy()]
+
+
+def serve(model, params, prompts):
+    """Serve ``prompts`` through a fresh engine, one step at a time with the
+    card synchronized around each step -> (engine, per-step records)."""
+    import torch
+
+    from repro_torch.serve import InferenceEngine, Request, ServeConfig
+    eng = InferenceEngine(model, ServeConfig(
+        n_slots=LM_SLOTS, max_len=LM_MAX_LEN, eos_token=-1,
+        prefix_cache=True))
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS))
+    steps = []
+    while eng.queue or any(r is not None for r in eng.slots):
+        queued, prefills = len(eng.queue), eng.prefills
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step(params)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "admitted": queued - len(eng.queue),
+                      "prefills": eng.prefills - prefills})
+    return eng, steps
+
+
+def phase_lm():
+    """MiniCPM-2B at full width through InferenceEngine; the attention
+    kernels' launch counts are zeroed just before and read just after."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as d_ops
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.models import build_model
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", param_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM_SEED)
+    params = model.init_params(gen)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    emit({"phase": "lm", "step": "init", "arch": LM_ARCH,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "d_head": cfg.d_head, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "params": n_params, "param_dtype": "bfloat16",
+          "seconds": time.perf_counter() - t0})
+    prompts = lm_prompts()
+
+    torch.cuda.reset_peak_memory_stats()
+    f_ops.launches, d_ops.launches = 0, 0      # the path's counts from here
+    t0 = time.perf_counter()
+    eng, steps = serve(model, params, prompts)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": f_ops.launches,
+                "decode_attention": d_ops.launches}
+    done = sorted(eng.completed, key=lambda r: r.rid)
+    if len(done) != len(prompts) or any(
+            len(r.output) != LM_NEW_TOKENS for r in done):
+        fail(f"lm: {len(done)} of {len(prompts)} requests completed, "
+             f"outputs {[len(r.output) for r in done]}")
+    if any(not 0 <= tok < cfg.vocab_size for r in done for tok in r.output):
+        fail("lm: a generated token lies outside the vocabulary")
+    if eng.prefills != len(prompts) - 1:
+        fail(f"lm: {eng.prefills} prefills for {len(prompts)} requests, "
+             f"one of which repeats a prompt")
+    want = {"flash_attention": cfg.n_layers * eng.prefills,
+            "decode_attention": cfg.n_layers * eng.decode_steps}
+    if launches != want:
+        fail(f"lm: kernel launches {launches}, expected {want} "
+             f"({eng.prefills} prefills, {eng.decode_steps} decode steps, "
+             f"{cfg.n_layers} layers)")
+    decode_only = [st["ms"] for st in steps if st["admitted"] == 0]
+    tokens = sum(len(r.output) for r in done)
+    emit({"phase": "lm", "step": "serve", "requests": len(done),
+          "prompt_lens": [len(p) for p in prompts],
+          "new_tokens": LM_NEW_TOKENS, "slots": LM_SLOTS,
+          "max_len": LM_MAX_LEN, "prefills": eng.prefills,
+          "decode_steps": eng.decode_steps, "engine_steps": len(steps),
+          "launches": launches, "wall_s": wall,
+          "tokens_per_s": tokens / wall,
+          "decode_step_ms_median": statistics.median(decode_only),
+          "decode_step_ms": decode_only,
+          "ttft_ms": [(r.first_token_at - r.submitted_at) * 1e3
+                      for r in done],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    profile_decode(model, params, eng.cache,
+                   statistics.median(decode_only))
+
+    # Per-request prefill time, measured alone after the counted run.
+    prefill_ms = []
+    for p in prompts[:-1]:
+        tok = torch.as_tensor(p, device="cuda")[None]
+        prefill_ms.append(cuda_ms(lambda: model.prefill(
+            params, tok, max_len=LM_MAX_LEN), warmup=1, runs=3))
+    emit({"phase": "lm", "step": "prefill",
+          "prompt_lens": list(LM_PROMPT_LENS), "prefill_ms": prefill_ms})
+    return cfg, model, params, prompts, done, launches
+
+
+def profile_decode(model, params, cache, step_ms, steps=3):
+    """Device time of a few decode steps (torch.profiler's CUDA events) ->
+    the device's busy share of an unprofiled step and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    tokens = torch.zeros((cache["len"].shape[0], 1), dtype=torch.int32,
+                         device="cuda")
+    _, cache = model.decode_step(params, cache, tokens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            _, cache = model.decode_step(params, cache, tokens)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3 / steps
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "lm", "step": "profile_decode", "steps": steps,
+          "device_busy_ms_per_step": busy if by_name else None,
+          "step_ms": step_ms,
+          "device_idle_share": 1.0 - busy / step_ms if by_name else None,
+          "kernels_per_step": sum(1 for e in prof.events()
+                                  if e.device_type == DeviceType.CUDA)
+          / steps,
+          "top_kernels_ms": [[name[:80], ms] for name, ms in top]})
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_lm_check(cfg, model, params, prompts, done):
+    """Slot isolation on the card, and the card against the CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import build_model
+    eng, _ = serve(model, params, [prompts[LM_ALONE]])
+    alone = eng.completed[0].output
+    batched = done[LM_ALONE].output
+    emit({"phase": "lm_check", "request": LM_ALONE,
+          "alone_equals_batched": alone == batched})
+    if alone != batched:
+        fail(f"lm: request {LM_ALONE} alone gave {alone}, in the batch "
+             f"{batched}")
+
+    small = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    sub = {"embed": params["embed"], "final_norm": params["final_norm"],
+           "layers": params["layers"][:LM_CHECK_LAYERS]}
+    tok = torch.as_tensor(prompts[LM_ALONE])[None]
+    card, _ = build_model(small, device="cuda",
+                          param_dtype=torch.bfloat16).prefill(sub, tok)
+    cpu_sub = {"embed": sub["embed"].cpu(),
+               "final_norm": sub["final_norm"].cpu(),
+               "layers": [{k: ({n: w.cpu() for n, w in v.items()}
+                               if isinstance(v, dict) else v.cpu())
+                           for k, v in lp.items()} for lp in sub["layers"]]}
+    t0 = time.perf_counter()
+    cpu, _ = build_model(small, device="cpu",
+                         param_dtype=torch.bfloat16).prefill(cpu_sub, tok)
+    cpu_s = time.perf_counter() - t0
+    v = cfg.vocab_size
+    card, cpu = card.cpu()[:, :v], cpu[:, :v]
+    if not torch.isfinite(card).all():
+        fail("lm: card prefill logits are not finite")
+    scale = float(cpu.abs().max())
+    err = float((card - cpu).abs().max())
+    tol = LM_CHECK_REL * scale
+    top2 = torch.topk(cpu, 2, dim=-1).values
+    clear = bool((top2[:, 0] - top2[:, 1] > 2 * tol).all())
+    same_top1 = bool((card.argmax(-1) == cpu.argmax(-1)).all())
+    emit({"phase": "lm_check", "layers": LM_CHECK_LAYERS,
+          "prompt_len": int(tok.shape[1]), "max_abs_err": err,
+          "cpu_logit_scale": scale, "tol": tol, "top1_clear": clear,
+          "same_top1": same_top1, "cpu_seconds": cpu_s})
+    if err > tol:
+        fail(f"lm: card prefill logits differ from the CPU's by {err} "
+             f"(tolerance {tol})")
+    if clear and not same_top1:
+        fail("lm: the card's greedy token differs from the CPU's where the "
+             "CPU margin is clear")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -371,7 +780,7 @@ def main() -> None:
         fail("src/repro_torch not found next to chip_smoke.py")
     sys.path.insert(0, str(ROOT / "src"))
 
-    phase_device()
+    smi = phase_device()
     phase_build()
 
     from repro_torch.core.rules.nn_translation import CUDA_PAD
@@ -391,10 +800,21 @@ def main() -> None:
     x_main = pipe.transform(cols)          # query (a)'s features, on card
     row = phase_kernels(ens, ens_pad8, x_main)
 
+    lens = [n + LM_NEW_TOKENS // 2 for n in LM_PROMPT_LENS[:LM_SLOTS]]
+    flash_row, decode_row = phase_attention_kernels(lens)
+
     outs, launches = phase_main(tables, pipe)
     phase_check(tables, pipe, outs)
+    del tables, outs
 
-    emit({"kernels": [{**row, "launches": launches}]})
+    cfg, model, params, prompts, done, lm_launches = phase_lm()
+    phase_lm_check(cfg, model, params, prompts, done)
+
+    print(smi, flush=True)      # the card beside the numbers, again
+    emit({"kernels": [
+        {**row, "launches": launches},
+        {**flash_row, "launches": lm_launches["flash_attention"]},
+        {**decode_row, "launches": lm_launches["decode_attention"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,22 @@
+"""Phi-3-medium 14B — dense RoPE/SwiGLU/GQA [arXiv:2404.14219].
+
+40L, d_model=5120, 40H (GQA kv=10, head 128), d_ff=17920, vocab=100352.
+"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-medium-14b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=10,
+    d_head=128,
+    d_ff=17920,
+    vocab_size=100352,
+    attention="full",
+    act="silu",
+    notes="dense GQA; fused qkv in reference impl (we keep separate "
+          "projections, same math)",
+)

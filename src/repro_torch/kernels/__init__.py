@@ -1,4 +1,4 @@
 """Hand-written CUDA kernels for the hot spots, one package each:
-``<name>.py`` (build and bind the CUDA source in ``repro_torch/csrc``),
-``ops.py`` (wrapper: checks, launch count, plain version for CPU tensors)
-and ``ref.py`` (the plain torch version)."""
+``<name>.py`` (bind the CUDA source in ``repro_torch/csrc``, built at first
+use by ``build.py``), ``ops.py`` (wrapper: checks, launch count, plain
+version for CPU tensors) and ``ref.py`` (the plain torch version)."""

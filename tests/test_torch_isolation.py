@@ -70,3 +70,40 @@ def test_cpu_store_moves_tables_to_its_device():
         {"a": np.arange(4, dtype=np.int32)}))
     assert store.get_table("t").device.type == "cpu"
     assert store.get_table("t").column("a").dtype == torch.int32
+
+
+def test_language_model_runs_on_the_card_or_raises():
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import LanguageModel, build_model
+    cfg = dataclasses.replace(reduced_config(get_config("minicpm-2b")),
+                              d_head=64)
+    for make in (build_model, LanguageModel):
+        if torch.cuda.is_available():
+            assert make(cfg).device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make(cfg)
+        assert make(cfg, device="cpu").device.type == "cpu"
+
+
+def test_inference_engine_runs_on_its_models_device():
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import InferenceEngine, Request, ServeConfig
+    cfg = dataclasses.replace(reduced_config(get_config("minicpm-2b")),
+                              d_head=64)
+    model = build_model(cfg, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    eng = InferenceEngine(model, ServeConfig(n_slots=1, max_len=16,
+                                             eos_token=-1))
+    assert eng.device.type == "cpu"
+    eng.submit(Request(rid=0, prompt=np.arange(4, dtype=np.int32),
+                       max_new_tokens=2))
+    eng.run_until_drained(params)
+    assert eng.cache["layers"][0]["k"].device.type == "cpu"
+    assert len(eng.completed[0].output) == 2

@@ -1,5 +1,5 @@
-"""The port's hand-written CUDA kernels against their plain torch versions,
-on the card.  A CUDA kernel has no CPU mode, so every test here carries the
+"""The port's hand-written CUDA kernels (tree GEMM, flash attention, decode
+attention) against their plain torch versions, on the card.  A CUDA kernel has no CPU mode, so every test here carries the
 ``cuda`` marker and skips (inside a fixture) where no card is present.  The
 file imports no JAX, so it runs on a machine that has only the port:
 
@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.tree_gemm import ops as tg_ops
 from repro_torch.ml import RandomForest, ensemble_to_gemm
 
@@ -69,3 +73,73 @@ def test_tree_gemm_kernel_rejects_cpu_ensemble_on_cuda_x(cuda_device):
     with pytest.raises(ValueError, match="on cpu"):
         tg_ops.tree_gemm(ens.to_device("cpu"),
                          torch.from_numpy(x).to(cuda_device))
+
+
+# -- attention ------------------------------------------------------------
+# float32 within 2e-5 and bfloat16 within 2e-2 of the plain version on the
+# same card inputs (tests/test_kernels.py's tolerances): the kernel sums in
+# another order, and rounds p against a running maximum where the plain
+# version uses the final one.
+_ATT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+_FLASH_SHAPES = [  # (b, s, t, h, kv, d): groups 1, 2, 4; ragged S and T
+    (2, 193, 193, 4, 4, 64),
+    (1, 130, 130, 8, 4, 128),
+    (2, 77, 77, 8, 2, 256),
+    (1, 100, 300, 4, 1, 128),
+]
+_FLASH_MASKS = [(True, 0, 0.0), (True, 64, 0.0), (True, 0, 30.0),
+                (False, 0, 0.0)]
+
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen).to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", _FLASH_SHAPES, ids=lambda s: "x".join(
+    map(str, s)))
+@pytest.mark.parametrize("causal,window,cap", _FLASH_MASKS,
+                         ids=["causal", "window64", "softcap30", "bidir"])
+def test_flash_attention_kernel_matches_plain(shape, dtype, causal, window,
+                                              cap, cuda_device):
+    b, s, t, h, kv, d = shape
+    gen = torch.Generator().manual_seed(s * 7 + d)
+    q = _randn(gen, (b, s, h, d), dtype, cuda_device)
+    k = _randn(gen, (b, t, kv, d), dtype, cuda_device)
+    v = _randn(gen, (b, t, kv, d), dtype, cuda_device)
+    before = flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                    softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    assert float((got.float() - want.float()).abs().max()) <= _ATT_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [  # (b, t, h, kv, d): groups 1, 4, 2, 5
+    (4, 1024, 36, 36, 64), (3, 777, 8, 2, 128), (2, 300, 8, 4, 256),
+    (3, 129, 8, 4, 64), (2, 50, 40, 8, 128)], ids=lambda s: "x".join(
+        map(str, s)))
+@pytest.mark.parametrize("cap", [0.0, 30.0], ids=["plain", "softcap30"])
+def test_decode_attention_kernel_matches_plain(shape, dtype, cap,
+                                               cuda_device):
+    b, t, h, kv, d = shape
+    gen = torch.Generator().manual_seed(t + d)
+    q = _randn(gen, (b, 1, h, d), dtype, cuda_device)
+    k = _randn(gen, (b, t, kv, d), dtype, cuda_device)
+    v = _randn(gen, (b, t, kv, d), dtype, cuda_device)
+    lens = torch.randint(1, t + 1, (b,), generator=gen, dtype=torch.int32)
+    lens[0] = 1                              # ragged, down to one slot
+    lens = lens.to(cuda_device)
+    before = decode_ops.launches
+    got = decode_ops.decode_attention(q, k, v, lens, softcap=cap)
+    torch.cuda.synchronize()
+    assert decode_ops.launches == before + 1
+    want = decode_attention_ref(q, k, v, lens, softcap=cap)
+    assert float((got.float() - want.float()).abs().max()) <= _ATT_TOL[dtype]
