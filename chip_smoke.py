@@ -8,16 +8,21 @@ Phases (each prints JSON lines; any failure exits non-zero):
 
 1. device   — the card (``nvidia-smi`` name and power limit), torch and
                CUDA versions; TF32 is switched off for matmuls and cuDNN.
-2. build    — compiles every kernel of both paths from
+2. build    — compiles every kernel of every path from
                ``src/repro_torch/csrc`` with ``nvcc`` (one process per
                source, all started together).
 3. kernels  — each kernel against its plain torch version on the card:
                tree_gemm bitwise at the query path's shapes and on edge
                cases (ragged rows, NaN/±inf, one tree); flash_attention and
                decode_attention within 2e-5 (float32) and 2e-2 (bfloat16)
-               over GQA groups 1, 2 and 4, head dims 64, 128 and 256,
+               over GQA groups 1, 2, 4 and 5, head dims 64, 128 and 256,
                causal / window 64 / softcap 30 / bidirectional, ragged S, T
-               and cache lengths.  Times each kernel, its plain version and
+               and cache lengths; rwkv6_scan and ssd_scan within 3e-4 on y
+               and on the final state, on float32 inputs and on the LM
+               paths' dtypes and layout, at the JAX kernel tests' shapes,
+               under strong decay (finite), with S off the chunk and B > 1,
+               one step alone, and at their LM paths' shapes.  Times each
+               kernel, its plain version and
                (where one exists) the one PyTorch call that computes the
                same function, with CUDA events, at the main paths' shapes.
 4. main     — the query path, as a user drives it: a ``ModelStore`` on the
@@ -30,18 +35,28 @@ Phases (each prints JSON lines; any failure exits non-zero):
                count must rise.
 5. check    — query (a) run on the card equals the same query run by the
                port on the CPU with traversal, bitwise.
-6. lm       — the LM path: MiniCPM-2B at full width (40 layers, random
-               bfloat16 weights from a seeded generator on the card) served
-               by ``InferenceEngine`` with 4 slots and max_len 1024: eight
-               greedy requests (prompts of 113-699 tokens, one repeated to
-               hit the prefix cache), 32 new tokens each.  Every prefill
-               must launch flash_attention once per layer and every decode
-               step decode_attention once per layer.
-7. lm_check — one request's output alone equals its output in the full
-               batch; the card's prefill logits for one prompt, through the
-               first 2 layers at full width, agree with the port's CPU run
-               of the same weights within 5% of the largest CPU logit, and
-               their greedy tokens agree where the CPU margin is clear.
+6. lm, lm_rwkv, lm_hymba — the LM paths, each a model at full width and
+               depth (random bfloat16 weights from a seeded generator on
+               the card) served by ``InferenceEngine`` with 4 slots, greedy,
+               32 new tokens a request: MiniCPM-2B (40 layers) and RWKV-6
+               1.6B (24 layers) at max_len 1024 on prompts of 113-699
+               tokens, Hymba-1.5B (32 layers, window 1024, global layers 0,
+               15, 31) at max_len 2048 on prompts of 113-1300 tokens (1300
+               exceeds the window in the prefill; 1010 wraps the decode
+               ring); RWKV-6 and Hymba also get a one-token prompt, whose
+               prefill goes through the scan kernel too; the first prompt
+               is repeated to hit the prefix cache.
+               Every kernel's launch count is zeroed before each path and
+               must then equal layers x prefills (flash_attention and the
+               family's scan) and layers x decode steps (decode_attention),
+               and zero for kernels the family does not run.  Reports
+               prefill ms, decode-step ms, tokens/s, peak memory and the
+               decode step's device-idle share.
+7. <path>_check — one request's output alone equals its output in the full
+               batch; the card's prefill logits for that prompt, through
+               the first 2 layers at full width, agree with the port's CPU
+               run of the same weights within 5% of the largest CPU logit,
+               and their greedy tokens agree where the CPU margin is clear.
 
 Then one ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
 {...}}``.  The script imports nothing of JAX or of the JAX package.
@@ -82,15 +97,24 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# The LM path: MiniCPM-2B at full width, served by InferenceEngine.
-LM_ARCH = "minicpm-2b"
+# The LM paths, each a model at full width served by InferenceEngine with
+# LM_SLOTS slots, greedy, LM_NEW_TOKENS tokens a request.
 LM_SEED = 0
-LM_SLOTS, LM_MAX_LEN, LM_NEW_TOKENS = 4, 1024, 32
+LM_SLOTS, LM_NEW_TOKENS = 4, 32
 # Prompt lengths between 100 and 700, none a multiple of 128; the last
 # request repeats the first prompt, so it hits the prefix cache.
 LM_PROMPT_LENS = (113, 245, 333, 402, 517, 590, 699)
+# Hymba's: past its 1,024-token window once in the prefill (1300) and once
+# while decoding (1010 + 32 new tokens wraps the ring).
+HYMBA_PROMPT_LENS = (113, 333, 517, 699, 1010, 1300)
 LM_REPEAT = 0
-LM_ALONE = 2          # the request also served alone
+# path -> (arch, max_len, prompt lengths, the request also served alone).
+# The recurrent families also prefill a one-token prompt.
+LM_PATHS = {
+    "lm": ("minicpm-2b", 1024, LM_PROMPT_LENS, 2),
+    "lm_rwkv": ("rwkv6-1.6b", 1024, LM_PROMPT_LENS + (1,), 2),
+    "lm_hymba": ("hymba-1.5b", 2048, HYMBA_PROMPT_LENS + (1,), 5),
+}
 LM_CHECK_LAYERS = 2   # depth of the card-vs-CPU logits check
 LM_CHECK_REL = 0.05   # its tolerance, relative to the largest CPU logit
 ATT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -151,10 +175,13 @@ def phase_build():
         decode_attention as da_build
     from repro_torch.kernels.flash_attention import \
         flash_attention as fa_build
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wkv_build
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_build
     from repro_torch.kernels.tree_gemm import tree_gemm as tg_build
     builders = {"tree_gemm": tg_build.build,
                 "flash_attention": fa_build.build,
-                "decode_attention": da_build.build}
+                "decode_attention": da_build.build,
+                "rwkv6_scan": wkv_build.build, "ssd_scan": ssd_build.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as pool:
         futures = {k: pool.submit(fn) for k, fn in builders.items()}
@@ -405,11 +432,12 @@ def phase_check(tables, pipe, outs):
 
 # -- phase 3, attention ------------------------------------------------------
 
-FLASH_SHAPES = [  # (b, s, t, h, kv, d): groups 1, 2, 4; S, T off the tile
+FLASH_SHAPES = [  # (b, s, t, h, kv, d): groups 1, 2, 4, 5; S, T off the tile
     (2, 193, 193, 4, 4, 64),
     (1, 130, 130, 8, 4, 128),
     (2, 77, 77, 8, 2, 256),
     (1, 100, 300, 4, 1, 128),
+    (1, 150, 150, 25, 5, 64),    # Hymba's 25 query heads over 5 KV heads
 ]
 FLASH_MASKS = [("causal", True, 0, 0.0), ("window64", True, 64, 0.0),
                ("softcap30", True, 0, 30.0), ("bidir", False, 0, 0.0)]
@@ -531,7 +559,7 @@ def phase_attention_kernels(engine_lens):
     emit({"phase": "kernels", "kernel": "flash_attention",
           "timing": flash_row, "q": [1, s, 36, 64], "dtype": "bfloat16"})
 
-    b, t = LM_SLOTS, LM_MAX_LEN
+    b, t = LM_SLOTS, LM_PATHS["lm"][1]
     q = randn((b, 1, 36, 64), bf16)
     kc, vc = randn((b, t, 36, 64), bf16), randn((b, t, 36, 64), bf16)
     lens = torch.tensor(engine_lens, dtype=torch.int32, device=dev)
@@ -562,28 +590,184 @@ def phase_attention_kernels(engine_lens):
     return flash_row, decode_row
 
 
-# -- phases 6 and 7 ------------------------------------------------------------
+# -- phase 3, scans ------------------------------------------------------------
 
-def lm_prompts():
+SCAN_TOL = 3e-4       # y and the final state (tests/test_kernels.py's)
+# (b, s, h, decay): tests/test_kernels.py's shapes, strong decay, S off the
+# 16-step chunk with B > 1, one step, and the RWKV-6 path's longest prefill.
+WKV_CASES = [(1, 32, 2, "mild"), (2, 48, 4, "mild"), (1, 40, 1, "mild"),
+             (1, 32, 2, "strong"), (3, 37, 2, "mild"), (2, 1, 3, "mild"),
+             (1, 699, 32, "mild")]
+# (b, s, h, p, n, decay): tests/test_kernels.py's shapes, strong decay
+# (dt * |a| up to ~300), S off the 128-step chunk with B > 1, and the
+# Hymba path's longest prefill (50 SSM heads of 64, state 16), with one
+# step alone before it.
+SSD_CASES = [(1, 32, 2, 8, 4, "mild"), (2, 64, 3, 16, 8, "mild"),
+             (1, 48, 2, 8, 4, "mild"), (1, 200, 2, 64, 16, "strong"),
+             (2, 300, 3, 64, 16, "mild"), (2, 1, 3, 64, 16, "mild"),
+             (1, 1300, 50, 64, 16, "mild")]
+
+
+def _nbytes(*tensors):
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def wkv_bound_ms(r, k, v, w, u):
+    """Least time: r, k, v, w, u read once at their own dtypes, y and the
+    final state written once (float32), or the recurrence's 5 K^2 float32
+    flops a step and head (S <- w S + k^T v: 3 K^2; r S: 2 K^2), whichever
+    is larger."""
+    b, s, h, kk = r.shape
+    nbytes = _nbytes(r, k, v, w, u) + 4.0 * (b * s * h * kk + b * h * kk * kk)
+    flops = 5.0 * b * s * h * kk * kk
+    by_ops, by_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(by_ops, by_bytes) * 1e3,
+            "operations" if by_ops >= by_bytes else "bytes", nbytes)
+
+
+def ssd_bound_ms(x, dt, a, bm, cm):
+    """Least time: x, dt, a, B, C read once at their own dtypes (a view
+    reads only its own elements), y and the final state written once
+    (float32), or the recurrence's 5 P N float32 flops a step and head
+    (h <- e h + dt x B^T: 3 P N; C h: 2 P N), whichever is larger."""
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    nbytes = _nbytes(x, dt, a, bm, cm) + 4.0 * (b * s * h * p + b * h * p * n)
+    flops = 5.0 * b * s * h * p * n
+    by_ops, by_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(by_ops, by_bytes) * 1e3,
+            "operations" if by_ops >= by_bytes else "bytes", nbytes)
+
+
+def phase_scan_kernels():
+    """rwkv6_scan and ssd_scan against their plain versions on the card
+    (y and final state), on float32 inputs and on the LM paths' dtypes and
+    layout (RWKV-6: bfloat16 r, k, v, u, float32 w; Hymba: bfloat16 x, dt,
+    B, C as views of one projection row, float32 a), then timed at their
+    LM paths' longest prefills in the paths' dtypes and layout."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rwkv6_scan import ops as w_ops
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
+    from repro_torch.kernels.ssd_scan import ops as s_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def compare(kernel, name, got, want, **info):
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            fail(f"{kernel} {info}: output not finite")
+        err = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        emit({"phase": "kernels", "kernel": kernel, "case": name, **info,
+              "max_abs_err_y": err[0], "max_abs_err_state": err[1],
+              "tol": SCAN_TOL})
+        if max(err) > SCAN_TOL:
+            fail(f"{kernel} {info} differs from its plain version by {err}")
+        return max(err)
+
+    def wkv_inputs(b, s, h, decay, inputs):
+        r, k, v = (randn(b, s, h, 64) * 0.5 for _ in range(3))
+        w = torch.full_like(r, 1e-6) if decay == "strong" else \
+            torch.sigmoid(randn(b, s, h, 64)) * 0.5 + 0.45
+        u = randn(h, 64) * 0.1
+        if inputs == "path":
+            r, k, v, u = (t.to(bf16) for t in (r, k, v, u))
+        return r, k, v, w, u
+
+    def ssd_inputs(b, s, h, p, n, decay, inputs):
+        row = randn(b, s, h * p + 2 * n) * 0.5
+        dt, a = F.softplus(randn(b, s, h)), -torch.exp(randn(h) * 0.3)
+        if decay == "strong":
+            dt, a = dt * 30, a * 10
+        if inputs == "path":            # views of one row, as ssm_apply
+            row, dt = row.to(bf16), dt.to(bf16)
+            x, bm, cm = torch.split(row, [h * p, n, n], dim=-1)
+        else:
+            x, bm, cm = (t.contiguous() for t in
+                         torch.split(row, [h * p, n, n], dim=-1))
+        return x.reshape(b, s, h, p), dt, a, bm, cm
+
+    worst = {"rwkv6_scan": 0.0, "ssd_scan": 0.0}
+    for (b, s, h, decay) in WKV_CASES:
+        for inputs in ("float32", "path"):
+            args = wkv_inputs(b, s, h, decay, inputs)
+            err = compare("rwkv6_scan", decay, w_ops.rwkv6_scan(*args),
+                          wkv6_scan_ref(*args), shape=[b, s, h, 64],
+                          inputs=inputs)
+            worst["rwkv6_scan"] = max(worst["rwkv6_scan"], err)
+    for (b, s, h, p, n, decay) in SSD_CASES:
+        for inputs in ("float32", "path"):
+            args = ssd_inputs(b, s, h, p, n, decay, inputs)
+            err = compare("ssd_scan", decay, s_ops.ssd_scan(*args),
+                          ssd_scan_ref(*args),
+                          shape={"x": [b, s, h, p], "bc": [b, s, n]},
+                          inputs=inputs)
+            worst["ssd_scan"] = max(worst["ssd_scan"], err)
+
+    # Timings at the LM paths' longest prefills, in the paths' dtypes and
+    # layout, as the models hand them to the wrappers.
+    b, s, h, _ = WKV_CASES[-1]
+    args = wkv_inputs(b, s, h, "mild", "path")
+    bound, by, nbytes = wkv_bound_ms(*args)
+    wkv_row = {
+        "name": "rwkv6_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:105",
+        "max_abs_err": worst["rwkv6_scan"],
+        "ms": cuda_ms(lambda: w_ops.rwkv6_scan(*args), runs=20),
+        "plain_ms": cuda_ms(lambda: wkv6_scan_ref(*args), warmup=1, runs=3),
+        "bound_ms": bound, "bound_by": by,
+        # no single PyTorch call computes the WKV6 recurrence
+        "library_ms": None}
+    emit({"phase": "kernels", "kernel": "rwkv6_scan", "timing": wkv_row,
+          "shape": [b, s, h, 64], "dtypes": [str(t.dtype) for t in args],
+          "bound_bytes": nbytes})
+
+    b, s, h, p, n, _ = SSD_CASES[-1]
+    args = ssd_inputs(b, s, h, p, n, "mild", "path")
+    bound, by, nbytes = ssd_bound_ms(*args)
+    ssd_row = {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:88",
+        "max_abs_err": worst["ssd_scan"],
+        "ms": cuda_ms(lambda: s_ops.ssd_scan(*args), runs=20),
+        "plain_ms": cuda_ms(lambda: ssd_scan_ref(*args), warmup=1, runs=3),
+        "bound_ms": bound, "bound_by": by,
+        # no single PyTorch call computes the SSD recurrence
+        "library_ms": None}
+    emit({"phase": "kernels", "kernel": "ssd_scan", "timing": ssd_row,
+          "shape": {"x": [b, s, h, p], "bc": [b, s, n]},
+          "dtypes": [str(t.dtype) for t in args], "bound_bytes": nbytes})
+    return wkv_row, ssd_row
+
+
+# -- phases 6 and 7: the LM paths ---------------------------------------------
+
+def lm_prompts(vocab, lens):
+    """Prompts of the given lengths from the seed, plus a repeat of the
+    first (a prefix-cache hit)."""
     import numpy as np
-
-    from repro_torch.configs import get_config
     rng = np.random.default_rng(LM_SEED)
-    vocab = get_config(LM_ARCH).vocab_size
-    prompts = [rng.integers(0, vocab, n).astype(np.int32)
-               for n in LM_PROMPT_LENS]
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
     return prompts + [prompts[LM_REPEAT].copy()]
 
 
-def serve(model, params, prompts):
+def serve(model, params, prompts, max_len):
     """Serve ``prompts`` through a fresh engine, one step at a time with the
     card synchronized around each step -> (engine, per-step records)."""
     import torch
 
     from repro_torch.serve import InferenceEngine, Request, ServeConfig
     eng = InferenceEngine(model, ServeConfig(
-        n_slots=LM_SLOTS, max_len=LM_MAX_LEN, eos_token=-1,
-        prefix_cache=True))
+        n_slots=LM_SLOTS, max_len=max_len, eos_token=-1, prefix_cache=True))
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS))
     steps = []
@@ -599,16 +783,42 @@ def serve(model, params, prompts):
     return eng, steps
 
 
-def phase_lm():
-    """MiniCPM-2B at full width through InferenceEngine; the attention
-    kernels' launch counts are zeroed just before and read just after."""
+def lm_kernel_ops():
+    """The wrapper module of every kernel an LM path can launch."""
+    from repro_torch.kernels.decode_attention import ops as d_ops
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.rwkv6_scan import ops as w_ops
+    from repro_torch.kernels.ssd_scan import ops as s_ops
+    return {"flash_attention": f_ops, "decode_attention": d_ops,
+            "rwkv6_scan": w_ops, "ssd_scan": s_ops}
+
+
+def expected_launches(cfg, eng):
+    """One launch a layer per prefill (flash attention, and the scan of the
+    family) and per decode step (decode attention); RWKV-6 has no
+    attention and decodes its recurrence in plain torch."""
+    n = cfg.n_layers
+    want = dict.fromkeys(lm_kernel_ops(), 0)
+    if cfg.rwkv:
+        want["rwkv6_scan"] = n * eng.prefills
+    else:
+        want["flash_attention"] = n * eng.prefills
+        want["decode_attention"] = n * eng.decode_steps
+    if cfg.hybrid:
+        want["ssd_scan"] = n * eng.prefills
+    return want
+
+
+def phase_lm(name):
+    """One LM path at full width through InferenceEngine; every kernel's
+    launch count is zeroed just before the engine runs and read just
+    after."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import ops as d_ops
-    from repro_torch.kernels.flash_attention import ops as f_ops
     from repro_torch.models import build_model
-    cfg = get_config(LM_ARCH)
+    arch, max_len, lens, _ = LM_PATHS[name]
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", param_dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda")
@@ -616,43 +826,46 @@ def phase_lm():
     params = model.init_params(gen)
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(params))
-    emit({"phase": "lm", "step": "init", "arch": LM_ARCH,
+    emit({"phase": name, "step": "init", "arch": arch,
           "layers": cfg.n_layers, "d_model": cfg.d_model,
           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
           "d_head": cfg.d_head, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
-          "params": n_params, "param_dtype": "bfloat16",
-          "seconds": time.perf_counter() - t0})
-    prompts = lm_prompts()
+          "attention": cfg.attention, "window": cfg.window_size,
+          "global_layers": list(cfg.global_layers),
+          "ssm_state": cfg.ssm_state, "params": n_params,
+          "param_dtype": "bfloat16", "seconds": time.perf_counter() - t0})
+    prompts = lm_prompts(cfg.vocab_size, lens)
 
+    ops = lm_kernel_ops()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    f_ops.launches, d_ops.launches = 0, 0      # the path's counts from here
+    for mod in ops.values():                   # the path's counts from here
+        mod.launches = 0
     t0 = time.perf_counter()
-    eng, steps = serve(model, params, prompts)
+    eng, steps = serve(model, params, prompts, max_len)
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": f_ops.launches,
-                "decode_attention": d_ops.launches}
+    launches = {k: mod.launches for k, mod in ops.items()}
     done = sorted(eng.completed, key=lambda r: r.rid)
     if len(done) != len(prompts) or any(
             len(r.output) != LM_NEW_TOKENS for r in done):
-        fail(f"lm: {len(done)} of {len(prompts)} requests completed, "
+        fail(f"{name}: {len(done)} of {len(prompts)} requests completed, "
              f"outputs {[len(r.output) for r in done]}")
     if any(not 0 <= tok < cfg.vocab_size for r in done for tok in r.output):
-        fail("lm: a generated token lies outside the vocabulary")
+        fail(f"{name}: a generated token lies outside the vocabulary")
     if eng.prefills != len(prompts) - 1:
-        fail(f"lm: {eng.prefills} prefills for {len(prompts)} requests, "
+        fail(f"{name}: {eng.prefills} prefills for {len(prompts)} requests, "
              f"one of which repeats a prompt")
-    want = {"flash_attention": cfg.n_layers * eng.prefills,
-            "decode_attention": cfg.n_layers * eng.decode_steps}
+    want = expected_launches(cfg, eng)
     if launches != want:
-        fail(f"lm: kernel launches {launches}, expected {want} "
+        fail(f"{name}: kernel launches {launches}, expected {want} "
              f"({eng.prefills} prefills, {eng.decode_steps} decode steps, "
              f"{cfg.n_layers} layers)")
     decode_only = [st["ms"] for st in steps if st["admitted"] == 0]
     tokens = sum(len(r.output) for r in done)
-    emit({"phase": "lm", "step": "serve", "requests": len(done),
+    emit({"phase": name, "step": "serve", "requests": len(done),
           "prompt_lens": [len(p) for p in prompts],
           "new_tokens": LM_NEW_TOKENS, "slots": LM_SLOTS,
-          "max_len": LM_MAX_LEN, "prefills": eng.prefills,
+          "max_len": max_len, "prefills": eng.prefills,
           "decode_steps": eng.decode_steps, "engine_steps": len(steps),
           "launches": launches, "wall_s": wall,
           "tokens_per_s": tokens / wall,
@@ -662,7 +875,7 @@ def phase_lm():
                       for r in done],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
-    profile_decode(model, params, eng.cache,
+    profile_decode(name, model, params, eng.cache,
                    statistics.median(decode_only))
 
     # Per-request prefill time, measured alone after the counted run.
@@ -670,13 +883,14 @@ def phase_lm():
     for p in prompts[:-1]:
         tok = torch.as_tensor(p, device="cuda")[None]
         prefill_ms.append(cuda_ms(lambda: model.prefill(
-            params, tok, max_len=LM_MAX_LEN), warmup=1, runs=3))
-    emit({"phase": "lm", "step": "prefill",
-          "prompt_lens": list(LM_PROMPT_LENS), "prefill_ms": prefill_ms})
-    return cfg, model, params, prompts, done, launches
+            params, tok, max_len=max_len), warmup=1, runs=3))
+    emit({"phase": name, "step": "prefill", "prompt_lens": list(lens),
+          "prefill_ms": prefill_ms})
+    phase_lm_check(name, cfg, model, params, prompts, done)
+    return launches
 
 
-def profile_decode(model, params, cache, step_ms, steps=3):
+def profile_decode(name, model, params, cache, step_ms, steps=3):
     """Device time of a few decode steps (torch.profiler's CUDA events) ->
     the device's busy share of an unprofiled step and the top kernels."""
     import torch
@@ -698,14 +912,14 @@ def profile_decode(model, params, cache, step_ms, steps=3):
                 + e.time_range.elapsed_us() / 1e3 / steps
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "lm", "step": "profile_decode", "steps": steps,
+    emit({"phase": name, "step": "profile_decode", "steps": steps,
           "device_busy_ms_per_step": busy if by_name else None,
           "step_ms": step_ms,
           "device_idle_share": 1.0 - busy / step_ms if by_name else None,
           "kernels_per_step": sum(1 for e in prof.events()
                                   if e.device_type == DeviceType.CUDA)
           / steps,
-          "top_kernels_ms": [[name[:80], ms] for name, ms in top]})
+          "top_kernels_ms": [[n[:80], ms] for n, ms in top]})
 
 
 def _leaves(tree):
@@ -719,57 +933,62 @@ def _leaves(tree):
         yield tree
 
 
-def phase_lm_check(cfg, model, params, prompts, done):
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def phase_lm_check(name, cfg, model, params, prompts, done):
     """Slot isolation on the card, and the card against the CPU."""
     import dataclasses
 
     import torch
 
     from repro_torch.models import build_model
-    eng, _ = serve(model, params, [prompts[LM_ALONE]])
+    _, max_len, _, alone_i = LM_PATHS[name]
+    eng, _ = serve(model, params, [prompts[alone_i]], max_len)
     alone = eng.completed[0].output
-    batched = done[LM_ALONE].output
-    emit({"phase": "lm_check", "request": LM_ALONE,
+    batched = done[alone_i].output
+    emit({"phase": f"{name}_check", "request": alone_i,
+          "prompt_len": len(prompts[alone_i]),
           "alone_equals_batched": alone == batched})
     if alone != batched:
-        fail(f"lm: request {LM_ALONE} alone gave {alone}, in the batch "
+        fail(f"{name}: request {alone_i} alone gave {alone}, in the batch "
              f"{batched}")
 
     small = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
-    sub = {"embed": params["embed"], "final_norm": params["final_norm"],
-           "layers": params["layers"][:LM_CHECK_LAYERS]}
-    tok = torch.as_tensor(prompts[LM_ALONE])[None]
+    sub = dict(params, layers=params["layers"][:LM_CHECK_LAYERS])
+    tok = torch.as_tensor(prompts[alone_i])[None]
     card, _ = build_model(small, device="cuda",
                           param_dtype=torch.bfloat16).prefill(sub, tok)
-    cpu_sub = {"embed": sub["embed"].cpu(),
-               "final_norm": sub["final_norm"].cpu(),
-               "layers": [{k: ({n: w.cpu() for n, w in v.items()}
-                               if isinstance(v, dict) else v.cpu())
-                           for k, v in lp.items()} for lp in sub["layers"]]}
     t0 = time.perf_counter()
     cpu, _ = build_model(small, device="cpu",
-                         param_dtype=torch.bfloat16).prefill(cpu_sub, tok)
+                         param_dtype=torch.bfloat16).prefill(
+        _to(sub, "cpu"), tok)
     cpu_s = time.perf_counter() - t0
     v = cfg.vocab_size
     card, cpu = card.cpu()[:, :v], cpu[:, :v]
     if not torch.isfinite(card).all():
-        fail("lm: card prefill logits are not finite")
+        fail(f"{name}: card prefill logits are not finite")
     scale = float(cpu.abs().max())
     err = float((card - cpu).abs().max())
     tol = LM_CHECK_REL * scale
     top2 = torch.topk(cpu, 2, dim=-1).values
     clear = bool((top2[:, 0] - top2[:, 1] > 2 * tol).all())
     same_top1 = bool((card.argmax(-1) == cpu.argmax(-1)).all())
-    emit({"phase": "lm_check", "layers": LM_CHECK_LAYERS,
+    emit({"phase": f"{name}_check", "layers": LM_CHECK_LAYERS,
           "prompt_len": int(tok.shape[1]), "max_abs_err": err,
           "cpu_logit_scale": scale, "tol": tol, "top1_clear": clear,
           "same_top1": same_top1, "cpu_seconds": cpu_s})
     if err > tol:
-        fail(f"lm: card prefill logits differ from the CPU's by {err} "
+        fail(f"{name}: card prefill logits differ from the CPU's by {err} "
              f"(tolerance {tol})")
     if clear and not same_top1:
-        fail("lm: the card's greedy token differs from the CPU's where the "
-             "CPU margin is clear")
+        fail(f"{name}: the card's greedy token differs from the CPU's where "
+             f"the CPU margin is clear")
 
 
 def main() -> None:
@@ -802,19 +1021,30 @@ def main() -> None:
 
     lens = [n + LM_NEW_TOKENS // 2 for n in LM_PROMPT_LENS[:LM_SLOTS]]
     flash_row, decode_row = phase_attention_kernels(lens)
+    wkv_row, ssd_row = phase_scan_kernels()
 
     outs, launches = phase_main(tables, pipe)
     phase_check(tables, pipe, outs)
     del tables, outs
 
-    cfg, model, params, prompts, done, lm_launches = phase_lm()
-    phase_lm_check(cfg, model, params, prompts, done)
+    lm_launches = {}
+    for name in LM_PATHS:
+        lm_launches[name] = phase_lm(name)
+        torch.cuda.empty_cache()
+
+    def on_paths(kernel, rows):
+        by_path = {name: counts[kernel]
+                   for name, counts in lm_launches.items() if counts[kernel]}
+        return {**rows, "launches": sum(by_path.values()),
+                "launches_by_path": by_path}
 
     print(smi, flush=True)      # the card beside the numbers, again
     emit({"kernels": [
         {**row, "launches": launches},
-        {**flash_row, "launches": lm_launches["flash_attention"]},
-        {**decode_row, "launches": lm_launches["decode_attention"]}]})
+        on_paths("flash_attention", flash_row),
+        on_paths("decode_attention", decode_row),
+        on_paths("rwkv6_scan", wkv_row),
+        on_paths("ssd_scan", ssd_row)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

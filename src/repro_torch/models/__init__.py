@@ -1,4 +1,5 @@
-"""LM side of the port: the dense, full-attention family (inference)."""
+"""LM side of the port (inference): the dense full-attention family,
+RWKV-6 and Hymba."""
 
 from .transformer import LanguageModel, build_model
 

@@ -13,6 +13,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..relational.table import resolve_device
 from .layers import ParamDef
 from .transformer import build_model
 
@@ -59,9 +60,12 @@ def _stack(layers):
 
 
 def lm_params_from_numpy(cfg, tree: Dict[str, Any],
-                         device: Any = "cpu") -> Dict[str, Any]:
+                         device: Any = None) -> Dict[str, Any]:
     """The JAX package's LM parameters (nested dict of numpy arrays, layers
-    stacked on axis 0) -> the port's, as tensors on ``device``."""
+    stacked on axis 0) -> the port's, as tensors on ``device`` (``None``
+    means the card, and raises without one; pass ``device="cpu"`` for the
+    CPU)."""
+    device = resolve_device(device)
     leaf = tree["layers"]
     while isinstance(leaf, dict):
         leaf = next(iter(leaf.values()))

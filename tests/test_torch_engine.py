@@ -170,7 +170,7 @@ def test_greedy_engine_matches_jax_engine_where_clear():
     jmodel = jax_build_model(jcfg, remat=False)
     jparams = jmodel.init_params(jax.random.PRNGKey(7))
     params = lm_params_from_numpy(
-        cfg, jax.tree_util.tree_map(np.asarray, jparams))
+        cfg, jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     model = build_model(cfg, device="cpu")
     rng = np.random.default_rng(7)
     prompts = [_prompt(rng, cfg, n) for n in (5, 9, 13)]

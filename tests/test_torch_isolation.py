@@ -88,6 +88,26 @@ def test_language_model_runs_on_the_card_or_raises():
         assert make(cfg, device="cpu").device.type == "cpu"
 
 
+def test_param_conversion_goes_to_the_card_or_raises():
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import (lm_params_from_numpy,
+                                            lm_params_to_numpy)
+    cfg = dataclasses.replace(reduced_config(get_config("minicpm-2b")),
+                              d_head=64)
+    tree = lm_params_to_numpy(build_model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0)))
+    if torch.cuda.is_available():
+        assert lm_params_from_numpy(cfg, tree)["embed"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            lm_params_from_numpy(cfg, tree)
+    params = lm_params_from_numpy(cfg, tree, device="cpu")
+    assert params["layers"][0]["ln1"].device.type == "cpu"
+
+
 def test_inference_engine_runs_on_its_models_device():
     import dataclasses
 

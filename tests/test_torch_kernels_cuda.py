@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels (tree GEMM, flash attention, decode
-attention) against their plain torch versions, on the card.  A CUDA kernel has no CPU mode, so every test here carries the
+attention, the WKV6 and SSD scans) against their plain torch versions, on
+the card.  A CUDA kernel has no CPU mode, so every test here carries the
 ``cuda`` marker and skips (inside a fixture) where no card is present.  The
 file imports no JAX, so it runs on a machine that has only the port:
 
@@ -14,6 +15,10 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.kernels.tree_gemm import ops as tg_ops
 from repro_torch.ml import RandomForest, ensemble_to_gemm
 
@@ -143,3 +148,78 @@ def test_decode_attention_kernel_matches_plain(shape, dtype, cap,
     assert decode_ops.launches == before + 1
     want = decode_attention_ref(q, k, v, lens, softcap=cap)
     assert float((got.float() - want.float()).abs().max()) <= _ATT_TOL[dtype]
+
+
+# -- scans ----------------------------------------------------------------
+# y and the final state within 3e-4 of the plain version (tests/
+# test_kernels.py's tolerance): the kernels sum each chunk's terms in
+# another order than the per-step recurrence.
+_SCAN_TOL = 3e-4
+
+
+# Each case runs on float32 inputs and on the LM paths' dtypes and layout:
+# RWKV-6 hands the kernel bfloat16 r, k, v, u and a float32 w; Hymba
+# bfloat16 x, dt, B, C, split out of one projection row, and a float32 a.
+_SCAN_INPUTS = ["float32", "path"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [  # (b, s, h, strong decay)
+    (1, 32, 2, False), (2, 48, 4, False), (1, 40, 1, False),
+    (1, 32, 2, True), (3, 37, 2, False), (1, 699, 32, False),
+    (2, 1, 3, False)],
+    ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("inputs", _SCAN_INPUTS)
+def test_rwkv6_scan_kernel_matches_plain(shape, inputs, cuda_device):
+    b, s, h, strong = shape
+    gen = torch.Generator().manual_seed(s + h)
+    r, k, v = (_randn(gen, (b, s, h, 64), torch.float32, cuda_device) * 0.5
+               for _ in range(3))
+    w = torch.full_like(r, 1e-6) if strong else torch.sigmoid(
+        _randn(gen, (b, s, h, 64), torch.float32, cuda_device)) * 0.5 + 0.45
+    u = _randn(gen, (h, 64), torch.float32, cuda_device) * 0.1
+    if inputs == "path":
+        r, k, v, u = (x.to(torch.bfloat16) for x in (r, k, v, u))
+    before = wkv_ops.launches
+    y, st = wkv_ops.rwkv6_scan(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert wkv_ops.launches == before + 1
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    y_want, st_want = wkv6_scan_ref(r, k, v, w, u)
+    assert float((y - y_want).abs().max()) <= _SCAN_TOL
+    assert float((st - st_want).abs().max()) <= _SCAN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [  # (b, s, h, p, n, strong decay)
+    (1, 32, 2, 8, 4, False), (2, 64, 3, 16, 8, False),
+    (1, 48, 2, 8, 4, False), (2, 300, 3, 64, 16, False),
+    (1, 200, 2, 64, 16, True), (1, 1300, 50, 64, 16, False),
+    (2, 1, 3, 64, 16, False)],
+    ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("inputs", _SCAN_INPUTS)
+def test_ssd_scan_kernel_matches_plain(shape, inputs, cuda_device):
+    b, s, h, p, n, strong = shape
+    gen = torch.Generator().manual_seed(s + p)
+    row = _randn(gen, (b, s, h * p + 2 * n), torch.float32, cuda_device)
+    dt = torch.nn.functional.softplus(
+        _randn(gen, (b, s, h), torch.float32, cuda_device))
+    a = -torch.exp(_randn(gen, (h,), torch.float32, cuda_device) * 0.3)
+    if strong:                                 # dt * |a| up to ~300
+        dt, a = dt * 30, a * 10
+    if inputs == "path":
+        row, dt = row.to(torch.bfloat16), dt.to(torch.bfloat16)
+        x, bm, cm = torch.split(row * 0.5, [h * p, n, n], dim=-1)
+        x = x.reshape(b, s, h, p)               # views: not copied
+    else:
+        x, bm, cm = (t.contiguous() for t in
+                     torch.split(row * 0.5, [h * p, n, n], dim=-1))
+        x = x.reshape(b, s, h, p)
+    before = ssd_ops.launches
+    y, st = ssd_ops.ssd_scan(x, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    y_want, st_want = ssd_scan_ref(x, dt, a, bm, cm)
+    assert float((y - y_want).abs().max()) <= _SCAN_TOL
+    assert float((st - st_want).abs().max()) <= _SCAN_TOL

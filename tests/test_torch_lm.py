@@ -40,7 +40,8 @@ from repro_torch.models.convert import (lm_params_from_numpy,
 # "+softcap": MiniCPM with gemma2's attention and final-logit soft caps,
 # which the dense path carries (the caps' kernels options and _logits).
 _ARCHS = ["minicpm-2b", "qwen2.5-14b", "minicpm-2b+softcap"]
-_BUILDABLE = {"minicpm-2b", "qwen2.5-14b", "phi3-medium-14b"}
+_BUILDABLE = {"minicpm-2b", "qwen2.5-14b", "phi3-medium-14b", "rwkv6-1.6b",
+              "hymba-1.5b"}
 _REL = 0.05
 _DECODE_STEPS = 8
 
@@ -74,7 +75,8 @@ def pair(request):
     np_params = _jax_params(jmodel, jcfg, seed=0)
     model = build_model(cfg, device="cpu")
     return (jcfg, jmodel, jax.tree_util.tree_map(jnp.asarray, np_params),
-            cfg, model, lm_params_from_numpy(cfg, np_params), np_params)
+            cfg, model, lm_params_from_numpy(cfg, np_params, device="cpu"),
+            np_params)
 
 
 def _check_logits(cfg, jax_logits, port_logits, what):
@@ -140,7 +142,7 @@ def test_conversion_round_trip_is_bitwise(pair):
         b = flat_b[path]
         assert a.dtype == b.dtype and a.shape == b.shape, path
         assert np.array_equal(a, b), path
-    again = lm_params_from_numpy(cfg, back)
+    again = lm_params_from_numpy(cfg, back, device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(
         jax.tree_util.tree_leaves(params), jax.tree_util.tree_leaves(again)))
 
@@ -150,7 +152,7 @@ def test_conversion_rejects_a_mismatched_tree(pair):
     bad = jax.tree_util.tree_map(lambda a: a, np_params)
     bad["final_norm"] = np.zeros(cfg.d_model + 1, np.float32)
     with pytest.raises(ValueError, match="final_norm"):
-        lm_params_from_numpy(cfg, bad)
+        lm_params_from_numpy(cfg, bad, device="cpu")
 
 
 def test_init_params_follows_the_template():
@@ -183,6 +185,9 @@ def test_build_model_names_each_unported_family(arch):
 @pytest.mark.parametrize("arch", sorted(_BUILDABLE))
 def test_build_model_runs_each_ported_config(arch):
     cfg = dataclasses.replace(reduced_config(get_config(arch)), d_head=64)
+    if cfg.rwkv:            # the WKV heads of 64 span d_model
+        cfg = dataclasses.replace(cfg, n_heads=cfg.d_model // 64,
+                                  n_kv_heads=cfg.d_model // 64)
     model = build_model(cfg, device="cpu")
     params = model.init_params(torch.Generator().manual_seed(0))
     logits, cache = model.prefill(params, torch.arange(9)[None], max_len=12)
