@@ -10,7 +10,8 @@ Phases (each prints JSON lines; any failure exits non-zero):
                CUDA versions; TF32 is switched off for matmuls and cuDNN.
 2. build    — compiles every kernel of every path from
                ``src/repro_torch/csrc`` with ``nvcc`` (one process per
-               source, all started together).
+               source, all started together) and prints ``ptxas``'s
+               registers, shared memory and spills for each kernel.
 3. kernels  — each kernel against its plain torch version on the card:
                tree_gemm bitwise at the query path's shapes and on edge
                cases (ragged rows, NaN/±inf, one tree); flash_attention and
@@ -24,7 +25,10 @@ Phases (each prints JSON lines; any failure exits non-zero):
                one step alone, and at their LM paths' shapes.  Times each
                kernel, its plain version and
                (where one exists) the one PyTorch call that computes the
-               same function, with CUDA events, at the main paths' shapes.
+               same function at the main paths' shapes, two ways: ``ms``
+               (one wrapper call between CUDA events, host time included)
+               and ``device_ms`` (the profiler's device time of 50
+               back-to-back launches of the bound C entry point, / 50).
 4. main     — the query path, as a user drives it: a ``ModelStore`` on the
                card holding the hospital tables at 1,000,000 patients each,
                a 64-tree depth-8 random forest over quickstart's seven
@@ -95,7 +99,9 @@ STRATEGIES = ("traversal", "gemm", "cuda", "auto")
 # bfloat16 on tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
+DEVICE_RUNS = 50            # back-to-back launches a device_ms spans
 
 # The LM paths, each a model at full width served by InferenceEngine with
 # LM_SLOTS slots, greedy, LM_NEW_TOKENS tokens a request.
@@ -146,6 +152,33 @@ def cuda_ms(fn, warmup: int = 2, runs: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, runs: int = DEVICE_RUNS, warmup: int = 3) -> float:
+    """Device milliseconds of one call of ``fn``: ``runs`` back-to-back
+    calls, after ``warmup``, run under torch.profiler, and the summed
+    duration of the device activities they caused (kernels, copies), over
+    ``runs``, is the call's device time.  The host's time and any gap
+    between launches are not in it, so for the bound C entry point of a
+    kernel it is the kernel's own time.  Inputs that fit in the 50 MB L2
+    stay warm there from one call to the next (each caller says which
+    do)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        fail("torch.profiler recorded no device time")
+    return us / 1e3 / runs
+
+
 # -- phase 1 -------------------------------------------------------------------
 
 def phase_device():
@@ -182,6 +215,7 @@ def phase_build():
                 "flash_attention": fa_build.build,
                 "decode_attention": da_build.build,
                 "rwkv6_scan": wkv_build.build, "ssd_scan": ssd_build.build}
+    from repro_torch.kernels.build import ptxas_report
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as pool:
         futures = {k: pool.submit(fn) for k, fn in builders.items()}
@@ -189,23 +223,48 @@ def phase_build():
                 for k, f in futures.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": libs})
+    sources = {"tree_gemm": tg_build.SOURCE,
+               "flash_attention": fa_build.SOURCE,
+               "decode_attention": da_build.SOURCE,
+               "rwkv6_scan": wkv_build.SOURCE, "ssd_scan": ssd_build.SOURCE}
+    import torch
+    dynamic = {"tree_gemm": {"F7_I256_O2": tg_build.smem_bytes(7, 256, 2)},
+               "flash_attention": {
+                   f"{dt}_D{d}": fa_build.smem_bytes(d, getattr(torch, dt))
+                   for dt in ("bfloat16", "float32") for d in (64, 128, 256)}}
+    for name, src in sources.items():
+        emit({"phase": "build", "kernel": name, "ptxas": ptxas_report(src),
+              "dynamic_smem_bytes": dynamic.get(name)})
 
 
 # -- phase 3 -------------------------------------------------------------------
 
 def tree_gemm_bound_ms(x, ens) -> tuple:
-    """Least time for this call: float32 operations over the CUDA-core peak,
-    or each input read once and the output written once over HBM bandwidth,
-    whichever is larger."""
+    """Least time for this call -> (ms, bound_by, fp32 ms).
+
+    The work is the function's: per row and tree, the I gates, S = gates . c
+    over I x L, the L matches and the payout.  The kernel takes the gates by
+    a gather (the one-hot product x . a of the TPU kernel gives the same
+    booleans, so its F x I multiply-adds are not work the function needs)
+    and S in int8 with an int32 accumulator (exact: {0,1} x {-1,0,+1}), so
+    the operations are 2 N T I L int8 tensor-core operations at 1,979 TOP/s
+    plus N T (I + L) gathers and compares at the CUDA cores' 67 T/s; the
+    bytes are x read once, the kernel's operands (int8 c, int32 d and
+    feat, float32 b and e) once and the output written once; the larger
+    of the two is the bound.  The third value is the bound of the earlier
+    float32 CUDA-core formulation, every product in float32 with the
+    one-hot gating kept, 2 N T (F I + I L + L O) at 67 TFLOP/s."""
     n, f = x.shape
     t, _, i = ens.a.shape
     l, o = ens.c.shape[2], ens.e.shape[2]
-    flops = 2.0 * n * t * (f * i + i * l + l * o)
-    nbytes = 4.0 * (x.numel() + sum(getattr(ens, k).numel() for k in "abcde")
-                    + n * o)
-    by_ops, by_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    by_ops = (2.0 * n * t * i * l / PEAK_INT8_OPS
+              + 1.0 * n * t * (i + l) / PEAK_FP32_FLOPS)
+    nbytes = 4.0 * x.numel() + t * i * l + 4.0 * t * (l + 2 * i + l * o) \
+        + 4.0 * n * o
+    by_bytes = nbytes / PEAK_BYTES_PER_S
+    fp32 = 2.0 * n * t * (f * i + i * l + l * o) / PEAK_FP32_FLOPS
     return (max(by_ops, by_bytes) * 1e3,
-            "operations" if by_ops >= by_bytes else "bytes")
+            "operations" if by_ops >= by_bytes else "bytes", fp32 * 1e3)
 
 
 def compare_tree_gemm(ens_dev, x) -> float:
@@ -268,20 +327,33 @@ def phase_kernels(ens, ens_pad8, x_main):
         fail(f"tree_gemm disagrees with its plain version: {worst}")
 
     from repro_torch.kernels.tree_gemm import ops as tg_ops
+    from repro_torch.kernels.tree_gemm.tree_gemm import tree_gemm_cuda
     dens = ens.to_device(dev)
     xm = torch.nan_to_num(x_main, nan=tg_ops._FMAX, posinf=tg_ops._FMAX,
                           neginf=-tg_ops._FMAX)
     ms = cuda_ms(lambda: tg_ops.tree_gemm(dens, x_main))
+    # device time of the C entry point: x (28 MB), the int8 c (4 MB) and
+    # the output (8 MB) fit in L2 together, so repeated launches find part
+    # of x warm; reading all of x from HBM takes ~8 us of a kernel of
+    # milliseconds either way
+    xm = xm.contiguous()
+    operands = tg_ops.kernel_operands(dens)
+    out = torch.empty((x_main.shape[0], dens.e.shape[2]),
+                      dtype=torch.float32, device=dev)
+    dev_ms = device_ms(
+        lambda: tree_gemm_cuda(xm, operands, dens.e, out))
     plain_ms = cuda_ms(lambda: tree_gemm_ref(xm, dens.a, dens.b, dens.c,
                                              dens.d, dens.e))
-    bound_ms, bound_by = tree_gemm_bound_ms(x_main, dens)
+    bound_ms, bound_by, fp32_ms = tree_gemm_bound_ms(x_main, dens)
     row = {"name": "tree_gemm", "route": "cuda",
            "source": "src/repro_torch/csrc/tree_gemm.cu",
            "replaces": "src/repro/kernels/tree_gemm/tree_gemm.py:75",
-           "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+           "max_abs_err": worst, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_fp32_ms": fp32_ms,
            # no single PyTorch call computes this function
-           "library_ms": None}
+           "library_ms": None, "library_device_ms": None}
     emit({"phase": "kernels", "kernel": "tree_gemm", "timing": row,
           "x": list(x_main.shape)})
     return row
@@ -347,6 +419,9 @@ def run_query(store, sql, strategy, timed_runs=3):
 
     compile_plan(plan, store, node_hook=hook)(tabs)
     return out, {"chosen": strategy_of(plan), "plan_ms": plan_ms,
+                 # the cost model's predictions, when it chose ("auto")
+                 "predicted": [d for r, d in _report.entries
+                               if r == "tree_strategy"],
                  "ms": statistics.median(times), "ms_runs": times,
                  "launches_per_run": launches,
                  "ops_ms": dict(sorted(ops_ms.items(),
@@ -438,6 +513,7 @@ FLASH_SHAPES = [  # (b, s, t, h, kv, d): groups 1, 2, 4, 5; S, T off the tile
     (2, 77, 77, 8, 2, 256),
     (1, 100, 300, 4, 1, 128),
     (1, 150, 150, 25, 5, 64),    # Hymba's 25 query heads over 5 KV heads
+    (3, 70, 129, 10, 2, 64),     # B > 1 with S != T, both off the tile
 ]
 FLASH_MASKS = [("causal", True, 0, 0.0), ("window64", True, 64, 0.0),
                ("softcap30", True, 0, 30.0), ("bidir", False, 0, 0.0)]
@@ -537,6 +613,12 @@ def phase_attention_kernels(engine_lens):
                                                 err)
 
     # Timings at the LM path's shapes (MiniCPM-2B: 36 heads of 64, MHA).
+    # Device times: q, k, v and out (12.9 MB) stay warm in L2 between the
+    # back-to-back launches, for the kernel and for SDPA alike.
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_attention_cuda
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_cuda
     bf16 = torch.bfloat16
     s = max(LM_PROMPT_LENS)
     q, k, v = (randn((1, s, 36, 64), bf16) for _ in range(3))
@@ -546,16 +628,23 @@ def phase_attention_kernels(engine_lens):
     if err > ATT_TOL["bfloat16"]:
         fail(f"flash_attention at the engine's shape differs by {err}")
     bound, by = flash_bound_ms(1, s, s, 36, 36, 64, True, 2, PEAK_BF16_FLOPS)
+    out = torch.empty_like(q)
+    dev_ms = device_ms(
+        lambda: flash_attention_cuda(q, k, v, out, True, 0, 0.0))
     flash_row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:113",
         "max_abs_err": max(worst["flash_attention"], err),
         "ms": cuda_ms(lambda: f_ops.flash_attention(q, k, v), runs=20),
+        "device_ms": dev_ms,
         "plain_ms": cuda_ms(lambda: attention_ref(q, k, v)),
         "bound_ms": bound, "bound_by": by,
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True, enable_gqa=True), runs=20)}
+            qh, kh, vh, is_causal=True, enable_gqa=True), runs=20),
+        "library_device_ms": device_ms(
+            lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True))}
     emit({"phase": "kernels", "kernel": "flash_attention",
           "timing": flash_row, "q": [1, s, 36, 64], "dtype": "bfloat16"})
 
@@ -572,6 +661,10 @@ def phase_attention_kernels(engine_lens):
         fail(f"decode_attention at the engine's shape differs by {err}")
     bound, by = decode_bound_ms(list(engine_lens), 36, 36, 64, 2,
                                 PEAK_BF16_FLOPS)
+    # Device times: the caches (37.7 MB) stay in L2 between launches.
+    out = torch.empty_like(q)
+    dev_ms = device_ms(
+        lambda: decode_attention_cuda(q, kc, vc, lens, out, 0.0))
     decode_row = {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -580,10 +673,14 @@ def phase_attention_kernels(engine_lens):
         "max_abs_err": max(worst["decode_attention"], err),
         "ms": cuda_ms(lambda: d_ops.decode_attention(q, kc, vc, lens),
                       runs=20),
+        "device_ms": dev_ms,
         "plain_ms": cuda_ms(lambda: decode_attention_ref(q, kc, vc, lens)),
         "bound_ms": bound, "bound_by": by,
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, enable_gqa=True), runs=20)}
+            qh, kh, vh, attn_mask=mask, enable_gqa=True), runs=20),
+        "library_device_ms": device_ms(
+            lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=True))}
     emit({"phase": "kernels", "kernel": "decode_attention",
           "timing": decode_row, "q": [b, 1, 36, 64], "cache": [b, t, 36, 64],
           "cache_len": list(engine_lens), "dtype": "bfloat16"})
@@ -712,20 +809,27 @@ def phase_scan_kernels():
             worst["ssd_scan"] = max(worst["ssd_scan"], err)
 
     # Timings at the LM paths' longest prefills, in the paths' dtypes and
-    # layout, as the models hand them to the wrappers.
+    # layout, as the models hand them to the wrappers.  Device times: the
+    # inputs (20.6 and 25.4 MB) stay in L2 between launches.
+    from repro_torch.kernels.rwkv6_scan.rwkv6_scan import rwkv6_scan_cuda
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
     b, s, h, _ = WKV_CASES[-1]
     args = wkv_inputs(b, s, h, "mild", "path")
     bound, by, nbytes = wkv_bound_ms(*args)
+    y = torch.empty(args[0].shape, dtype=torch.float32, device=dev)
+    st = torch.empty((b, h, 64, 64), dtype=torch.float32, device=dev)
+    dev_ms = device_ms(lambda: rwkv6_scan_cuda(*args, y, st))
     wkv_row = {
         "name": "rwkv6_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:105",
         "max_abs_err": worst["rwkv6_scan"],
         "ms": cuda_ms(lambda: w_ops.rwkv6_scan(*args), runs=20),
+        "device_ms": dev_ms,
         "plain_ms": cuda_ms(lambda: wkv6_scan_ref(*args), warmup=1, runs=3),
         "bound_ms": bound, "bound_by": by,
         # no single PyTorch call computes the WKV6 recurrence
-        "library_ms": None}
+        "library_ms": None, "library_device_ms": None}
     emit({"phase": "kernels", "kernel": "rwkv6_scan", "timing": wkv_row,
           "shape": [b, s, h, 64], "dtypes": [str(t.dtype) for t in args],
           "bound_bytes": nbytes})
@@ -733,16 +837,20 @@ def phase_scan_kernels():
     b, s, h, p, n, _ = SSD_CASES[-1]
     args = ssd_inputs(b, s, h, p, n, "mild", "path")
     bound, by, nbytes = ssd_bound_ms(*args)
+    y = torch.empty(args[0].shape, dtype=torch.float32, device=dev)
+    st = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    dev_ms = device_ms(lambda: ssd_scan_cuda(*args, y, st))
     ssd_row = {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:88",
         "max_abs_err": worst["ssd_scan"],
         "ms": cuda_ms(lambda: s_ops.ssd_scan(*args), runs=20),
+        "device_ms": dev_ms,
         "plain_ms": cuda_ms(lambda: ssd_scan_ref(*args), warmup=1, runs=3),
         "bound_ms": bound, "bound_by": by,
         # no single PyTorch call computes the SSD recurrence
-        "library_ms": None}
+        "library_ms": None, "library_device_ms": None}
     emit({"phase": "kernels", "kernel": "ssd_scan", "timing": ssd_row,
           "shape": {"x": [b, s, h, p], "bc": [b, s, n]},
           "dtypes": [str(t.dtype) for t in args], "bound_bytes": nbytes})

@@ -321,11 +321,11 @@ def _dense_flops_per_row(t, n_internal, n_leaves, n_out) -> float:
                       + n_leaves * n_out))
 
 
-def _cuda_flops_per_row(t, n_features, n_internal, n_leaves,
-                        n_out) -> float:
-    # the kernel keeps the X @ A gating product of the TPU kernel
-    return float(t * (n_features * n_internal + n_internal * n_leaves
-                      + n_leaves * n_out))
+def _cuda_flops_per_row(t, n_internal, n_leaves, n_out) -> float:
+    # the CUDA kernel gates by gather (I compares), takes the I*L path
+    # counts on the int8 tensor cores, matches L leaves and adds O payouts
+    return float(t * (n_internal + n_internal * n_leaves + n_leaves
+                      + n_out))
 
 
 def measure_tree_calibration(backend: str = "cpu"
@@ -370,8 +370,7 @@ def measure_tree_calibration(backend: str = "cpu"
     if backend == "cuda":
         slope, cuda_call = _fit_linear(n0, times[("cuda", n0)],
                                        n1, times[("cuda", n1)])
-        cuda_flop = slope / _cuda_flops_per_row(
-            t, _CAL_FEATURES, n_i, n_l, n_o)
+        cuda_flop = slope / _cuda_flops_per_row(t, n_i, n_l, n_o)
     return TreeStrategyCalibration(
         backend=backend, trav_step=trav_step, trav_call=trav_call,
         gemm_flop=gemm_flop, gemm_call=gemm_call,
@@ -426,7 +425,7 @@ def tree_strategy_costs(model, n_rows: float, n_features: int,
     }
     if cal.cuda_flop is not None:
         costs["cuda"] = cal.cuda_call + n_rows * cal.cuda_flop \
-            * _cuda_flops_per_row(t, n_features, i128, l128, n_out)
+            * _cuda_flops_per_row(t, i128, l128, n_out)
     else:
         costs["cuda"] = float("inf")
     return costs

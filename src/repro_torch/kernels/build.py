@@ -1,11 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one CUDA source under ``repro_torch/csrc`` with a plain C
-interface.  It is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library and loaded with ``ctypes``.  The build lands in
-``repro_torch/_build/`` (ignored by git) under a name that carries the
-source's digest, so an edited source rebuilds and an unchanged one is
-reused.  Nothing here runs at import time: the kernel modules import on a
+interface (sharing the headers there, ``*.cuh``).  It is compiled at first
+use with ``nvcc`` for ``sm_90a`` into a shared library and loaded with
+``ctypes``.  The kernels are raw PTX (``wgmma``, TMA): no CUTLASS include is
+needed.  The build lands in ``repro_torch/_build/`` (ignored by git) under a
+name that carries the digest of the source and the headers, so an edited
+source rebuilds and an unchanged one is reused; ``nvcc``'s output, with
+``ptxas``'s registers, static shared memory and spills of every kernel
+(``-Xptxas -v``), is kept beside the library (``ptxas_report``).  Nothing here runs at import time: the kernel modules import on a
 machine with no ``nvcc`` and no card, where only their plain versions are
 reachable.
 """
@@ -18,17 +21,19 @@ import os
 import shutil
 import subprocess
 import tempfile
+import re
 import threading
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load",
+           "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: Dict[Path, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -46,11 +51,17 @@ def _nvcc() -> str:
     return path
 
 
+def _library(source: Path) -> Path:
+    sha = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{sha.hexdigest()[:16]}.so"
+
+
 def build(source: Path) -> Path:
-    """Compile ``source`` (if this version of it has not been built yet)
-    and return the library's path."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    """Compile ``source`` (if this version of it and of the headers has not
+    been built yet) and return the library's path."""
+    lib = _library(source)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -62,8 +73,31 @@ def build(source: Path) -> Path:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)       # atomic: a concurrent build never sees half
     return lib
+
+
+def ptxas_report(source: Path) -> List[Dict[str, object]]:
+    """Per kernel of the built ``source``: registers, static shared memory
+    and spill bytes, as ``ptxas -v`` printed them at the build (the
+    kernels' dynamic shared memory is set at launch and not listed)."""
+    log = _library(source).with_suffix(".log").read_text()
+    kernels: List[Dict[str, object]] = []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kernels.append({"kernel": entry.group(1)})
+        elif kernels:
+            for key, pattern in (
+                    ("registers", r"Used (\d+) registers"),
+                    ("smem_static_bytes", r"(\d+) bytes smem"),
+                    ("spill_stores_bytes", r"(\d+) bytes spill stores"),
+                    ("spill_loads_bytes", r"(\d+) bytes spill loads")):
+                found = re.search(pattern, line)
+                if found:
+                    kernels[-1][key] = int(found.group(1))
+    return kernels
 
 
 def load(source: Path, declare: Callable[[ctypes.CDLL], None]

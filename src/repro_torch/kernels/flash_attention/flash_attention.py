@@ -1,7 +1,8 @@
-"""Bind the hand-written CUDA flash-attention kernel
-(``repro_torch/csrc/flash_attention.cu``, which replaces the TPU kernel
-``flash_attention_pallas``).  ``kernels/build.py`` compiles it at first use;
-nothing here runs at import time."""
+"""Bind the hand-written CUDA flash-attention kernels
+(``repro_torch/csrc/flash_attention.cu``, which replace the TPU kernel
+``flash_attention_pallas``): bfloat16 inputs go to the ``wgmma`` + TMA
+kernel, float32 inputs to the CUDA-core one.  ``kernels/build.py`` compiles
+them at first use; nothing here runs at import time."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 
 from .. import build as _build
 
-__all__ = ["build", "flash_attention_cuda", "SOURCE"]
+__all__ = ["build", "flash_attention_cuda", "smem_bytes", "SOURCE"]
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 
@@ -29,8 +30,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                            f, i, i, f, p]
     lib.flash_attention_launch.restype = i
+    lib.flash_attention_smem_bytes.argtypes = [i, i]
+    lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+
+
+def smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block at head dim ``d``."""
+    lib = _build.load(SOURCE, _declare)
+    return lib.flash_attention_smem_bytes(d, int(dtype == torch.bfloat16))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,7 +47,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          softcap: float) -> None:
     """Launch the kernel on the current stream, writing ``out`` (shaped and
     typed like ``q``).  The caller has checked devices, dtypes, shapes and
-    contiguity (``ops.flash_attention``)."""
+    contiguity (``ops.flash_attention``).  The bfloat16 kernel reads q, k
+    and v through TMA tensor maps, whose base addresses must be 16-byte
+    aligned (the row strides, H*D*2 and KV*D*2 bytes, are multiples of
+    128 for every D taken)."""
+    if q.dtype == torch.bfloat16 and any(
+            x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention: the bfloat16 kernel loads q, k, "
+                         "v by TMA, which needs 16-byte aligned bases")
     lib = _build.load(SOURCE, _declare)
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]

@@ -6,9 +6,15 @@ of the JAX package running its Pallas kernel with ``interpret=True``.
 There is no fallback from one to the other.  ``launches`` counts kernel
 launches (and nothing else), so a run can show that it went through the
 kernel.
+
+The kernel runs ``gates . c`` on the int8 tensor cores and gates by a
+gather of x at each node's feature, so it takes its own operands, derived
+from the ensemble once and kept with it (``kernel_operands``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -17,11 +23,78 @@ from ...ml.hummingbird import DeviceEnsemble, EnsembleGemm
 from ...ml.tree import reciprocal_f32
 from .ref import tree_gemm_ref
 
-__all__ = ["tree_gemm", "launches"]
+__all__ = ["tree_gemm", "launches", "kernel_operands", "KernelOperands",
+           "NO_LEAF", "MAX_NODES"]
 
 launches = 0
 
 _FMAX = float(np.finfo(np.float32).max)
+NO_LEAF = 2**31 - 1        # d of a padded leaf: no sum of gates . c reaches it
+_PAD_NODES, _PAD_LEAVES = 128, 64   # the kernel's tiles of I and of L
+MAX_NODES = 512            # padded internal nodes the kernel is built for
+
+
+class KernelOperands(NamedTuple):
+    """The CUDA kernel's view of a ``DeviceEnsemble``, I padded to Ip (a
+    multiple of 128) and L to Lp (a multiple of 64): padded nodes have
+    feature 0, threshold fmax and zero rows of c; padded leaves zero
+    columns of c and d = ``NO_LEAF``."""
+
+    ct: torch.Tensor    # [T, Lp, Ip] int8: c transposed (K-major)
+    d: torch.Tensor     # [T, Lp] int32
+    feat: torch.Tensor  # [T, Ip] int32
+    b: torch.Tensor     # [T, Ip] float32
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def kernel_operands(ens: DeviceEnsemble) -> KernelOperands:
+    """Build the kernel's operands on the ensemble's device (once: they are
+    kept in ``ens.kernel_operands``).  Raises if the ensemble has no
+    feature indices, more than ``MAX_NODES`` internal nodes a tree, or if c
+    or d do not have the values that make the int8 product exact: c in
+    {-1, 0, +1}, d an integer in [0, I] or fmax."""
+    cached = ens.kernel_operands.get("tree_gemm")
+    if cached is not None:
+        return cached
+    if ens.feat is None:
+        raise ValueError("tree_gemm: the ensemble carries no feature indices "
+                         "(feat); the kernel gates by gathering x at them")
+    t, n_f, i = ens.a.shape
+    l = ens.c.shape[2]
+    c, d, feat = ens.c, ens.d, ens.feat
+    if tuple(feat.shape) != (t, i):
+        raise ValueError(f"tree_gemm: feat has shape {tuple(feat.shape)}, "
+                         f"expected {(t, i)}")
+    if not bool(((c == 0) | (c == 1) | (c == -1)).all()):
+        raise ValueError("tree_gemm: c holds values outside {-1, 0, +1}")
+    sentinel = d == _FMAX
+    if not bool((sentinel | ((d == torch.round(d)) & (d >= 0) & (d <= i)))
+                .all()):
+        raise ValueError(f"tree_gemm: d holds a value that is neither an "
+                         f"integer in [0, {i}] nor the fmax sentinel")
+    if not bool(((feat >= 0) & (feat < n_f)).all()):
+        raise ValueError(f"tree_gemm: feat holds an index outside "
+                         f"[0, {n_f})")
+    ip, lp = _round_up(i, _PAD_NODES), _round_up(l, _PAD_LEAVES)
+    if ip > MAX_NODES:
+        raise ValueError(f"tree_gemm: {i} internal nodes a tree; the kernel "
+                         f"takes up to {MAX_NODES} (trees of depth <= 9)")
+    dev = c.device
+    ct = torch.zeros((t, lp, ip), dtype=torch.int8, device=dev)
+    ct[:, :l, :i] = c.transpose(1, 2).to(torch.int8)
+    d32 = torch.full((t, lp), NO_LEAF, dtype=torch.int32, device=dev)
+    d32[:, :l] = torch.where(sentinel, 0.0, d).to(torch.int32) \
+        .masked_fill_(sentinel, NO_LEAF)
+    feat32 = torch.zeros((t, ip), dtype=torch.int32, device=dev)
+    feat32[:, :i] = feat.to(torch.int32)
+    b = torch.full((t, ip), _FMAX, dtype=torch.float32, device=dev)
+    b[:, :i] = ens.b
+    ops = KernelOperands(ct, d32, feat32, b)
+    ens.kernel_operands["tree_gemm"] = ops
+    return ops
 
 
 def _check(x: torch.Tensor, ens: DeviceEnsemble) -> None:
@@ -58,12 +131,12 @@ def tree_gemm(ensemble, x: torch.Tensor) -> torch.Tensor:
     ens = ensemble.to_device(x.device) \
         if isinstance(ensemble, EnsembleGemm) else ensemble
     x = x.to(torch.float32)
-    # The kernel gates via x . a, where NaN/±inf would poison every gate
-    # column through 0 * NaN = NaN.  Mapping NaN/+inf -> fmax and -inf ->
-    # -fmax keeps the gate booleans identical to traversal's per-node
+    # The plain version gates via x . a, where NaN/±inf would poison every
+    # gate column through 0 * NaN = NaN.  Mapping NaN/+inf -> fmax and -inf
+    # -> -fmax keeps the gate booleans identical to traversal's per-node
     # comparisons: every real threshold is a finite data midpoint, so
     # fmax <= t is False (like NaN <= t and inf <= t) and -fmax <= t is
-    # True (like -inf <= t).
+    # True (like -inf <= t).  The kernel's gather sees the same values.
     x = torch.nan_to_num(x, nan=_FMAX, posinf=_FMAX,
                         neginf=-_FMAX).contiguous()
     _check(x, ens)
@@ -71,9 +144,10 @@ def tree_gemm(ensemble, x: torch.Tensor) -> torch.Tensor:
         out = tree_gemm_ref(x, ens.a, ens.b, ens.c, ens.d, ens.e)
     elif x.device.type == "cuda":
         from .tree_gemm import tree_gemm_cuda
+        operands = kernel_operands(ens)
         out = torch.empty((x.shape[0], ens.e.shape[2]), dtype=torch.float32,
                           device=x.device)
-        tree_gemm_cuda(x, ens.a, ens.b, ens.c, ens.d, ens.e, out)
+        tree_gemm_cuda(x, operands, ens.e, out)
         launches += 1
     else:
         raise ValueError(f"tree_gemm: no kernel for device {x.device}")

@@ -139,11 +139,15 @@ class EnsembleGemm:
             else None
         return DeviceEnsemble(dev(self.a), dev(self.b), dev(self.c),
                               dev(self.d), dev(self.e), feat,
-                              self.n_trees, self.average)
+                              self.n_trees, self.average, {})
 
 
 class DeviceEnsemble(NamedTuple):
-    """An :class:`EnsembleGemm` placed on one device."""
+    """An :class:`EnsembleGemm` placed on one device.
+
+    ``kernel_operands`` holds what a kernel derives from the arrays at its
+    first use and keeps for the ensemble's life (the CUDA tree GEMM's int8
+    c and int32 d, ``kernels.tree_gemm.ops.kernel_operands``)."""
 
     a: torch.Tensor
     b: torch.Tensor
@@ -153,6 +157,7 @@ class DeviceEnsemble(NamedTuple):
     feat: Optional[torch.Tensor]
     n_trees: int
     average: bool
+    kernel_operands: dict
 
 
 def ensemble_to_gemm(trees: Sequence[TreeArrays], pad_to: int = 128,

@@ -21,6 +21,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.kernels.tree_gemm import ops as tg_ops
 from repro_torch.ml import RandomForest, ensemble_to_gemm
+from repro_torch.ml.hummingbird import EnsembleGemm
 
 _GRID = [  # (seed, n_trees, depth, n_features, nan_frac, n_rows)
     (0, 1, 2, 2, 0.0, 48),
@@ -69,6 +70,35 @@ def test_tree_gemm_kernel_matches_plain_bitwise(case, pad, cuda_device):
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   rf.predict_scores(xt).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [1, 63, 65, 1001, 100_003])
+@pytest.mark.parametrize("pad,n_trees", [(128, 6), (8, 6), (128, 1)],
+                         ids=["pad128", "pad8", "one_tree"])
+def test_tree_gemm_kernel_edge_cases_bitwise(n_rows, pad, n_trees,
+                                             cuda_device):
+    """chip_smoke's edge cases: ragged row counts around the 128-row block,
+    NaN/±inf, one tree, I and L padded to 8 (not the kernel's tiles)."""
+    rf, x = _forest_and_x(5, n_trees, 8, 7, 0.05, n_rows)
+    ens = ensemble_to_gemm(rf.trees, pad_to=pad)
+    got = tg_ops.tree_gemm(ens.to_device(cuda_device),
+                           torch.from_numpy(x).to(cuda_device))
+    want = tg_ops.tree_gemm(ens, torch.from_numpy(x))    # plain, on the CPU
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_tree_gemm_kernel_needs_feature_indices(cuda_device):
+    rf, x = _forest_and_x(*_GRID[1])
+    ens = ensemble_to_gemm(rf.trees, pad_to=128)
+    no_feat = EnsembleGemm(ens.a, ens.b, ens.c, ens.d, ens.e,
+                           n_trees=ens.n_trees)
+    before = tg_ops.launches
+    with pytest.raises(ValueError, match="feature indices"):
+        tg_ops.tree_gemm(no_feat.to_device(cuda_device),
+                         torch.from_numpy(x).to(cuda_device))
+    assert tg_ops.launches == before
 
 
 @pytest.mark.cuda
@@ -122,6 +152,51 @@ def test_flash_attention_kernel_matches_plain(shape, dtype, causal, window,
     assert got.dtype == dtype and got.shape == q.shape
     want = attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
     assert float((got.float() - want.float()).abs().max()) <= _ATT_TOL[dtype]
+
+
+# The bfloat16 path is the wgmma + TMA kernel: head dims 64, 128 and 256,
+# GQA groups 1, 4 and 5, B > 1, S and T off the 64-row tile and S != T, a
+# single token; window 64 over 193 rows leaves the last rows a fully masked
+# leading key tile.
+_WGMMA_SHAPES = [  # (b, s, t, h, kv, d)
+    (2, 193, 193, 4, 4, 64),
+    (1, 130, 300, 8, 2, 128),
+    (2, 77, 150, 10, 2, 256),
+    (3, 150, 150, 25, 5, 64),
+    (2, 1, 1, 8, 8, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _WGMMA_SHAPES, ids=lambda s: "x".join(
+    map(str, s)))
+@pytest.mark.parametrize("causal,window,cap", _FLASH_MASKS,
+                         ids=["causal", "window64", "softcap30", "bidir"])
+def test_flash_attention_bf16_wgmma_matches_plain(shape, causal, window, cap,
+                                                  cuda_device):
+    b, s, t, h, kv, d = shape
+    gen = torch.Generator().manual_seed(s * 3 + t + d)
+    q, k, v = (_randn(gen, (b, n, heads, d), torch.bfloat16, cuda_device)
+               for n, heads in ((s, h), (t, kv), (t, kv)))
+    before = flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                    softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    want = attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    assert float((got.float() - want.float()).abs().max()) \
+        <= _ATT_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_refuses_misaligned_base(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    buf = _randn(gen, (2 * 64 * 4 * 64 + 1,), torch.bfloat16, cuda_device)
+    q = buf[1:].view(2, 64, 4, 64)        # contiguous, 2 bytes off 16
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_ops.flash_attention(q, q, q)
 
 
 @pytest.mark.cuda
