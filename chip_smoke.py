@@ -22,7 +22,9 @@ Phases (each prints JSON lines; any failure exits non-zero):
                and on the final state, on float32 inputs and on the LM
                paths' dtypes and layout, at the JAX kernel tests' shapes,
                under strong decay (finite), with S off the chunk and B > 1,
-               one step alone, and at their LM paths' shapes.  Times each
+               one step alone, under strong decay across many chunks with
+               B > 1 (the state pass between chunks), and at their LM
+               paths' shapes.  Times each
                kernel, its plain version and
                (where one exists) the one PyTorch call that computes the
                same function at the main paths' shapes, two ways: ``ms``
@@ -69,6 +71,7 @@ Then one ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -152,7 +155,8 @@ def cuda_ms(fn, warmup: int = 2, runs: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int = DEVICE_RUNS, warmup: int = 3) -> float:
+def device_ms(fn, runs: int = DEVICE_RUNS, warmup: int = 3,
+              by_kernel: dict | None = None) -> float:
     """Device milliseconds of one call of ``fn``: ``runs`` back-to-back
     calls, after ``warmup``, run under torch.profiler, and the summed
     duration of the device activities they caused (kernels, copies), over
@@ -160,7 +164,8 @@ def device_ms(fn, runs: int = DEVICE_RUNS, warmup: int = 3) -> float:
     between launches are not in it, so for the bound C entry point of a
     kernel it is the kernel's own time.  Inputs that fit in the 50 MB L2
     stay warm there from one call to the next (each caller says which
-    do)."""
+    do).  ``by_kernel``, where given, receives the same per kernel (by its
+    function's name), for entry points that launch several."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -172,10 +177,16 @@ def device_ms(fn, runs: int = DEVICE_RUNS, warmup: int = 3) -> float:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = sum(e.time_range.elapsed_us() for e in device)
     if us <= 0:
         fail("torch.profiler recorded no device time")
+    if by_kernel is not None:
+        for e in device:
+            found = re.search(r"(\w+_kernel)\b", e.name)
+            name = found.group(1) if found else e.name
+            by_kernel[name] = by_kernel.get(name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3 / runs
     return us / 1e3 / runs
 
 
@@ -691,17 +702,22 @@ def phase_attention_kernels(engine_lens):
 
 SCAN_TOL = 3e-4       # y and the final state (tests/test_kernels.py's)
 # (b, s, h, decay): tests/test_kernels.py's shapes, strong decay, S off the
-# 16-step chunk with B > 1, one step, and the RWKV-6 path's longest prefill.
+# 16-step chunk with B > 1, one step, strong decay over 13 chunks with
+# B 2 (the state pass), B 3 over 4 chunks with S off the chunk, and last
+# the RWKV-6 path's longest prefill (the timed case).
 WKV_CASES = [(1, 32, 2, "mild"), (2, 48, 4, "mild"), (1, 40, 1, "mild"),
              (1, 32, 2, "strong"), (3, 37, 2, "mild"), (2, 1, 3, "mild"),
+             (2, 200, 3, "strong"), (3, 53, 2, "mild"),
              (1, 699, 32, "mild")]
 # (b, s, h, p, n, decay): tests/test_kernels.py's shapes, strong decay
-# (dt * |a| up to ~300), S off the 128-step chunk with B > 1, and the
-# Hymba path's longest prefill (50 SSM heads of 64, state 16), with one
-# step alone before it.
+# (dt * |a| up to ~300), S off the 64-step chunk with B > 1, one step,
+# strong decay over 18 chunks with B 2 (the state pass), B 3 over 4 chunks
+# with S off the chunk and P, N off the kernel's tiles, and last the Hymba
+# path's longest prefill (50 SSM heads of 64, state 16; the timed case).
 SSD_CASES = [(1, 32, 2, 8, 4, "mild"), (2, 64, 3, 16, 8, "mild"),
              (1, 48, 2, 8, 4, "mild"), (1, 200, 2, 64, 16, "strong"),
              (2, 300, 3, 64, 16, "mild"), (2, 1, 3, 64, 16, "mild"),
+             (2, 1100, 3, 64, 16, "strong"), (3, 200, 2, 18, 12, "mild"),
              (1, 1300, 50, 64, 16, "mild")]
 
 
@@ -809,16 +825,22 @@ def phase_scan_kernels():
             worst["ssd_scan"] = max(worst["ssd_scan"], err)
 
     # Timings at the LM paths' longest prefills, in the paths' dtypes and
-    # layout, as the models hand them to the wrappers.  Device times: the
-    # inputs (20.6 and 25.4 MB) stay in L2 between launches.
-    from repro_torch.kernels.rwkv6_scan.rwkv6_scan import rwkv6_scan_cuda
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
+    # layout, as the models hand them to the wrappers.  Device times span
+    # the three passes of each C entry point; the inputs (20.6 and 25.4
+    # MB) stay in L2 between launches, beside the scratch (23.4 and 4.3
+    # MB).
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as w_bind
+    from repro_torch.kernels.ssd_scan import ssd_scan as s_bind
     b, s, h, _ = WKV_CASES[-1]
     args = wkv_inputs(b, s, h, "mild", "path")
     bound, by, nbytes = wkv_bound_ms(*args)
     y = torch.empty(args[0].shape, dtype=torch.float32, device=dev)
     st = torch.empty((b, h, 64, 64), dtype=torch.float32, device=dev)
-    dev_ms = device_ms(lambda: rwkv6_scan_cuda(*args, y, st))
+    scratch = torch.empty(w_bind.scratch_floats(b, s, h), device=dev)
+    passes = {}
+    dev_ms = device_ms(
+        lambda: w_bind.rwkv6_scan_cuda(*args, y, st, scratch),
+        by_kernel=passes)
     wkv_row = {
         "name": "rwkv6_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/rwkv6_scan.cu",
@@ -831,15 +853,18 @@ def phase_scan_kernels():
         # no single PyTorch call computes the WKV6 recurrence
         "library_ms": None, "library_device_ms": None}
     emit({"phase": "kernels", "kernel": "rwkv6_scan", "timing": wkv_row,
-          "shape": [b, s, h, 64], "dtypes": [str(t.dtype) for t in args],
-          "bound_bytes": nbytes})
+          "device_ms_by_pass": passes, "shape": [b, s, h, 64],
+          "dtypes": [str(t.dtype) for t in args], "bound_bytes": nbytes})
 
     b, s, h, p, n, _ = SSD_CASES[-1]
     args = ssd_inputs(b, s, h, p, n, "mild", "path")
     bound, by, nbytes = ssd_bound_ms(*args)
     y = torch.empty(args[0].shape, dtype=torch.float32, device=dev)
     st = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
-    dev_ms = device_ms(lambda: ssd_scan_cuda(*args, y, st))
+    scratch = torch.empty(s_bind.scratch_floats(b, s, h, p, n), device=dev)
+    passes = {}
+    dev_ms = device_ms(lambda: s_bind.ssd_scan_cuda(*args, y, st, scratch),
+                       by_kernel=passes)
     ssd_row = {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
@@ -852,6 +877,7 @@ def phase_scan_kernels():
         # no single PyTorch call computes the SSD recurrence
         "library_ms": None, "library_device_ms": None}
     emit({"phase": "kernels", "kernel": "ssd_scan", "timing": ssd_row,
+          "device_ms_by_pass": passes,
           "shape": {"x": [b, s, h, p], "bc": [b, s, n]},
           "dtypes": [str(t.dtype) for t in args], "bound_bytes": nbytes})
     return wkv_row, ssd_row

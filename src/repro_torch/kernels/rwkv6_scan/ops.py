@@ -3,8 +3,10 @@
 A CUDA tensor launches the hand-written kernel (``rwkv6_scan.py``) or
 raises; a CPU tensor takes the plain version (``ref.py``), the counterpart
 of the JAX package running its Pallas kernel with ``interpret=True``.  There
-is no fallback from one to the other.  ``launches`` counts kernel launches
-(and nothing else), so a run can show that it went through the kernel.
+is no fallback from one to the other.  ``launches`` counts wrapper calls
+that launched the kernel (and nothing else), so a run can show that it went
+through the kernel: one a call, though the C entry point runs three passes
+(chunk-local states, the state pass across chunks, the outputs).
 
 Unlike the TPU kernel, which drops the state at the end of the sequence,
 both versions return it: the model's prefill hands it to the decode cache.
@@ -60,6 +62,13 @@ def _check(r, k, v, w, u, state) -> None:
                          f"{[str(x.device) for x in tensors]}")
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and on a 16-byte boundary, as the kernel loads 16
+    bytes a thread: ``x`` itself where it is both, else a copy."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor,
                state: Optional[torch.Tensor] = None
@@ -74,12 +83,14 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return wkv6_scan_ref(r, k, v, w, u)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: no kernel for device {r.device}")
-    from .rwkv6_scan import rwkv6_scan_cuda
-    r, k, v, w, u = (x.contiguous() for x in (r, k, v, w, u))
+    from .rwkv6_scan import rwkv6_scan_cuda, scratch_floats
+    r, k, v, w, u = (_aligned(x) for x in (r, k, v, w, u))
     b, s, h, kk = r.shape
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     state_out = torch.empty((b, h, kk, kk), dtype=torch.float32,
                             device=r.device)
-    rwkv6_scan_cuda(r, k, v, w, u, y, state_out)
+    scratch = torch.empty(scratch_floats(b, s, h, kk), dtype=torch.float32,
+                          device=r.device)
+    rwkv6_scan_cuda(r, k, v, w, u, y, state_out, scratch)
     launches += 1
     return y, state_out

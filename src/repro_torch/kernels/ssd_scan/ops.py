@@ -3,8 +3,10 @@
 A CUDA tensor launches the hand-written kernel (``ssd_scan.py``) or
 raises; a CPU tensor takes the plain version (``ref.py``), the counterpart
 of the JAX package running its Pallas kernel with ``interpret=True``.  There
-is no fallback from one to the other.  ``launches`` counts kernel launches
-(and nothing else), so a run can show that it went through the kernel.
+is no fallback from one to the other.  ``launches`` counts wrapper calls
+that launched the kernel (and nothing else), so a run can show that it went
+through the kernel: one a call, though the C entry point runs three passes
+(chunk-local states, the state pass across chunks, the outputs).
 
 Unlike the TPU kernel, which drops the state at the end of the sequence,
 both versions return it: the model's prefill hands it to the decode cache.
@@ -94,13 +96,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         return ssd_scan_ref(x, dt, a, bmat, cmat)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
-    from .ssd_scan import ssd_scan_cuda
+    from .ssd_scan import scratch_floats, ssd_scan_cuda
     x, bmat, cmat = _rows(x), _rows(bmat), _rows(cmat)
     dt, a = dt.contiguous(), a.contiguous()
     b, s, h, p = x.shape
+    n = bmat.shape[2]
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    h_out = torch.empty((b, h, p, bmat.shape[2]), dtype=torch.float32,
-                        device=x.device)
-    ssd_scan_cuda(x, dt, a, bmat, cmat, y, h_out)
+    h_out = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(scratch_floats(b, s, h, p, n), dtype=torch.float32,
+                          device=x.device)
+    ssd_scan_cuda(x, dt, a, bmat, cmat, y, h_out, scratch)
     launches += 1
     return y, h_out

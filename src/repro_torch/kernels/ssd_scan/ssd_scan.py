@@ -10,9 +10,18 @@ import torch
 
 from .. import build as _build
 
-__all__ = ["build", "ssd_scan_cuda", "SOURCE"]
+__all__ = ["build", "ssd_scan_cuda", "scratch_floats", "CHUNK", "SOURCE"]
 
 SOURCE = _build.CSRC / "ssd_scan.cu"
+CHUNK = 64              # the kernel's chunk length (Q in the source)
+
+
+def scratch_floats(b: int, s: int, h: int, p: int, n: int) -> int:
+    """Float32 elements of the scratch the kernel's passes share: each
+    chunk's local state [P,N] (then the state entering it) and its summed
+    decay exponent."""
+    n_chunks = -(-s // CHUNK)
+    return b * h * n_chunks * (p * n + 1)
 
 
 def build() -> Path:
@@ -24,8 +33,8 @@ def build() -> Path:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     ll = ctypes.c_longlong
-    lib.ssd_scan_launch.argtypes = [p, p, p, p, p, i, ll, ll, ll, p, p, i,
-                                    i, i, i, i, p]
+    lib.ssd_scan_launch.argtypes = [p, p, p, p, p, i, ll, ll, ll, p, p, p,
+                                    ll, i, i, i, i, i, p]
     lib.ssd_scan_launch.restype = i
     lib.ssd_scan_error_string.argtypes = [i]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -33,23 +42,28 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                   bmat: torch.Tensor, cmat: torch.Tensor, y: torch.Tensor,
-                  h_out: torch.Tensor) -> None:
-    """Launch the kernel on the current stream, writing ``y`` and ``h_out``
-    (float32, contiguous).  x, dt, bmat and cmat share one dtype, float32
-    or bfloat16, and a is float32, on one card; dt and a are contiguous, and
-    x, bmat and cmat contiguous within a token with one row stride between
-    tokens (``ops._rows``); the caller has checked shapes and dtypes
-    (``ops.ssd_scan``)."""
-    lib = _build.load(SOURCE, _declare)
+                  h_out: torch.Tensor, scratch: torch.Tensor) -> None:
+    """Launch the kernel's three passes on the current stream, writing ``y``
+    and ``h_out`` (float32, contiguous) and using ``scratch`` (float32, at
+    least ``scratch_floats`` elements).  x, dt, bmat and cmat share one
+    dtype, float32 or bfloat16, and a is float32, on one card; dt and a are
+    contiguous, and x, bmat and cmat contiguous within a token with one row
+    stride between tokens (``ops._rows``); the caller has checked shapes and
+    dtypes (``ops.ssd_scan``)."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
+    if scratch.dtype != torch.float32 \
+            or scratch.numel() < scratch_floats(b, s, h, p, n):
+        raise ValueError(f"ssd_scan: scratch must hold "
+                         f"{scratch_floats(b, s, h, p, n)} float32")
+    lib = _build.load(SOURCE, _declare)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
             cmat.data_ptr(), int(x.dtype == torch.bfloat16), x.stride(1),
             bmat.stride(1), cmat.stride(1), y.data_ptr(), h_out.data_ptr(),
-            b, s, h, p, n, stream)
+            scratch.data_ptr(), scratch.numel(), b, s, h, p, n, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: "
                            f"{lib.ssd_scan_error_string(err).decode()}")

@@ -242,7 +242,10 @@ _SCAN_INPUTS = ["float32", "path"]
 @pytest.mark.parametrize("shape", [  # (b, s, h, strong decay)
     (1, 32, 2, False), (2, 48, 4, False), (1, 40, 1, False),
     (1, 32, 2, True), (3, 37, 2, False), (1, 699, 32, False),
-    (2, 1, 3, False)],
+    (2, 1, 3, False),
+    # the state pass between chunks: strong decay over 13 chunks of 16,
+    # and B 3 over 4 chunks with S off the chunk
+    (2, 200, 3, True), (3, 53, 2, False)],
     ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("inputs", _SCAN_INPUTS)
 def test_rwkv6_scan_kernel_matches_plain(shape, inputs, cuda_device):
@@ -270,7 +273,10 @@ def test_rwkv6_scan_kernel_matches_plain(shape, inputs, cuda_device):
     (1, 32, 2, 8, 4, False), (2, 64, 3, 16, 8, False),
     (1, 48, 2, 8, 4, False), (2, 300, 3, 64, 16, False),
     (1, 200, 2, 64, 16, True), (1, 1300, 50, 64, 16, False),
-    (2, 1, 3, 64, 16, False)],
+    (2, 1, 3, 64, 16, False),
+    # the state pass between chunks: strong decay over 18 chunks of 64,
+    # and B 3 over 4 chunks with S off the chunk and P, N off the tiles
+    (2, 1100, 3, 64, 16, True), (3, 200, 2, 18, 12, False)],
     ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("inputs", _SCAN_INPUTS)
 def test_ssd_scan_kernel_matches_plain(shape, inputs, cuda_device):

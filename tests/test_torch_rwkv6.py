@@ -5,6 +5,13 @@
   against ``wkv6_reference``, at ``tests/test_kernels.py``'s shapes and
   under strong decay (w = 1e-6), within that file's 3e-4; its final state
   against ``wkv6_chunked``'s (the form the JAX model runs).
+- ``wkv6_chunked_ref``, the CUDA kernel's chunk-parallel decomposition in
+  plain torch (chunk-local states, the state pass across chunks, the
+  outputs), against the JAX Pallas kernel in interpret mode and the
+  per-step recurrence, on y and the final state, within 3e-4: the same
+  shapes, strong decay over 13 chunks with B 2, B 3 with S off the chunk,
+  and one step.  The kernel itself runs only on the card
+  (``tests/test_torch_kernels_cuda.py``); this pins its algorithm here.
 - ``rwkv_time_mix`` and ``rwkv_channel_mix`` against JAX's on the same
   float32 parameters and inputs, for a sequence and for a decode step.
 - ``reduced_config(rwkv6-1.6b)`` with 2 heads of 64 (the kernel takes head
@@ -18,6 +25,7 @@ All inputs are numpy arrays from a seed; nothing sets global state.
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +43,9 @@ from repro.serve import Request as JaxRequest
 from repro.serve import ServeConfig as JaxServeConfig
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels.rwkv6_scan import ops as scan_ops
-from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan as scan_kernel
+from repro_torch.kernels.rwkv6_scan.ref import (wkv6_chunked_ref,
+                                                wkv6_scan_ref)
 from repro_torch.models import build_model
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.convert import (lm_params_from_numpy,
@@ -87,6 +97,41 @@ def test_plain_scan_matches_the_jax_kernel_and_reference(b, s, h, kk, chunk,
     np.testing.assert_allclose(y.numpy(), np.asarray(y_chunked), atol=_ATOL)
     np.testing.assert_allclose(state.numpy(), np.asarray(st_chunked),
                                atol=_ATOL)
+
+
+# (b, s, h, kk, chunk of the JAX kernel, strong decay): the shapes above,
+# then the state pass between chunks: strong decay over 13 chunks of 16
+# with B 2, B 3 over 4 chunks with S off the chunk, and one step.
+_CHUNKED_SHAPES = _SHAPES + [
+    (2, 200, 3, 64, 16, True), (3, 53, 2, 64, 16, False),
+    (2, 1, 3, 64, 16, False),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kk,chunk,strong", _CHUNKED_SHAPES)
+def test_chunked_mirror_matches_the_jax_kernel_and_reference(b, s, h, kk,
+                                                             chunk, strong):
+    arrays = _scan_inputs(s + b, b, s, h, kk, strong)
+    y, state = wkv6_chunked_ref(*(torch.from_numpy(a) for a in arrays))
+    assert y.dtype == state.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    y_ref, st_ref = wkv6_scan_ref(*(torch.from_numpy(a) for a in arrays))
+    np.testing.assert_allclose(y.numpy(), y_ref.numpy(), atol=_ATOL)
+    np.testing.assert_allclose(state.numpy(), st_ref.numpy(), atol=_ATOL)
+    kernel = np.asarray(jax_rwkv6_scan(*(jnp.asarray(a) for a in arrays),
+                                       chunk=chunk))     # interpret mode
+    np.testing.assert_allclose(y.numpy(), kernel, atol=_ATOL)
+
+
+def test_binding_chunk_matches_the_cuda_source():
+    """The binding's chunk length (the mirror's and the scratch size's) is
+    the CUDA source's."""
+    source = scan_kernel.SOURCE.read_text()
+    assert re.search(r"constexpr int Q = (\d+);", source).group(1) \
+        == str(scan_kernel.CHUNK)
+    n_chunks = -(-699 // scan_kernel.CHUNK)
+    assert scan_kernel.scratch_floats(1, 699, 32) \
+        == 32 * n_chunks * (64 * 64 + 64)
 
 
 def test_plain_scan_carries_an_initial_state():

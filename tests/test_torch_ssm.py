@@ -6,6 +6,15 @@ package's, on the CPU.
   against ``ssd_reference``, at ``tests/test_kernels.py``'s shapes and at
   Hymba's head width and state size, within that file's 3e-4; its final
   state against ``ssd_chunked``'s where that is finite.
+- ``ssd_chunked_ref``, the CUDA kernel's chunk-parallel decomposition in
+  plain torch (chunk-local states, the state pass across chunks, the
+  outputs, chunks of 64), against the JAX Pallas kernel in interpret mode
+  and the per-step recurrence, on y and the final state, within 3e-4: the
+  same shapes, strong decay over 18 chunks with B 2, B 3 with S, P and N
+  off the kernel's tiles, and one step.  The Pallas kernel differences
+  float32 cumsums for its exponents and drifts past 3e-4 under strong
+  decay on some inputs; the kernel and its mirror sum in float64 and stay
+  within: a test shows both.
 - The JAX package's ``ssd_chunked`` turns NaN once a chunk is long enough
   (S = 128, dt 0.7, a = -1: ``exp(csum_t - csum_s)`` for t < s overflows
   before the triangular mask multiplies it by 0).  The Pallas kernel clamps
@@ -26,6 +35,7 @@ All inputs are numpy arrays from a seed; nothing sets global state.
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -43,7 +53,8 @@ from repro.serve import Request as JaxRequest
 from repro.serve import ServeConfig as JaxServeConfig
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels.ssd_scan import ops as scan_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.kernels.ssd_scan import ssd_scan as scan_kernel
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_scan_ref
 from repro_torch.models import build_model
 from repro_torch.models import ssm
 from repro_torch.models.convert import (lm_params_from_numpy,
@@ -93,6 +104,67 @@ def test_plain_scan_matches_the_jax_kernel_and_reference(b, s, h, p, n,
                                    atol=_ATOL)
         np.testing.assert_allclose(state.numpy(), np.asarray(st_chunked),
                                    atol=_ATOL)
+
+
+def _strong(arrays):
+    """dt * |a| up to ~300 a step, as chip_smoke's strong-decay cases."""
+    x, dt, a, bm, cm = arrays
+    return x, dt * 30, a * 10, bm, cm
+
+
+# (b, s, h, p, n, chunk of the JAX kernel, strong decay): the shapes
+# above, then the state pass between chunks: strong decay over 18 chunks of
+# 64 with B 2, B 3 over 4 chunks with S, P and N off the kernel's tiles,
+# and one step.
+_CHUNKED_SHAPES = [shape + (False,) for shape in _SHAPES] + [
+    (2, 1100, 3, 64, 16, 64, True), (3, 200, 2, 18, 12, 64, False),
+    (2, 1, 3, 64, 16, 64, False),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,strong", _CHUNKED_SHAPES)
+def test_chunked_mirror_matches_the_jax_kernel_and_reference(b, s, h, p, n,
+                                                             chunk, strong):
+    arrays = _scan_inputs(s + p, b, s, h, p, n)
+    if strong:
+        arrays = _strong(arrays)
+    y, state = ssd_chunked_ref(*(torch.from_numpy(a) for a in arrays))
+    assert y.dtype == state.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    y_ref, st_ref = ssd_scan_ref(*(torch.from_numpy(a) for a in arrays))
+    np.testing.assert_allclose(y.numpy(), y_ref.numpy(), atol=_ATOL)
+    np.testing.assert_allclose(state.numpy(), st_ref.numpy(), atol=_ATOL)
+    kernel = np.asarray(jax_ssd_scan(*(jnp.asarray(a) for a in arrays),
+                                     chunk=chunk))       # interpret mode
+    np.testing.assert_allclose(y.numpy(), kernel, atol=_ATOL)
+
+
+def test_jax_kernel_drifts_under_strong_decay_where_the_mirror_does_not():
+    """Strong decay (2, 1100, 3, 64, 16): the Pallas kernel's exponents are
+    differences of float32 cumsums that reach ~1e4 within a chunk, so on
+    these inputs its y is off the per-step recurrence by more than 3e-4 at
+    either chunk length; the mirror, which sums in float64, is within."""
+    arrays = _strong(_scan_inputs(1, 2, 1100, 3, 64, 16))
+    y_ref, st_ref = ssd_scan_ref(*(torch.from_numpy(a) for a in arrays))
+    for chunk in (64, 128):
+        kernel = np.asarray(jax_ssd_scan(*(jnp.asarray(a) for a in arrays),
+                                         chunk=chunk))
+        assert np.isfinite(kernel).all()
+        assert np.abs(kernel - y_ref.numpy()).max() > _ATOL
+    y, state = ssd_chunked_ref(*(torch.from_numpy(a) for a in arrays))
+    np.testing.assert_allclose(y.numpy(), y_ref.numpy(), atol=_ATOL)
+    np.testing.assert_allclose(state.numpy(), st_ref.numpy(), atol=_ATOL)
+
+
+def test_binding_chunk_matches_the_cuda_source():
+    """The binding's chunk length (the mirror's and the scratch size's) is
+    the CUDA source's."""
+    source = scan_kernel.SOURCE.read_text()
+    assert re.search(r"constexpr int Q = (\d+);", source).group(1) \
+        == str(scan_kernel.CHUNK)
+    n_chunks = -(-1300 // scan_kernel.CHUNK)
+    assert scan_kernel.scratch_floats(1, 1300, 50, 64, 16) \
+        == 50 * n_chunks * (64 * 16 + 1)
 
 
 def test_jax_ssd_chunked_overflows_where_the_kernels_stay_finite():
