@@ -16,21 +16,29 @@ Phases (each prints JSON lines; any failure exits non-zero):
                tree_gemm bitwise at the query path's shapes and on edge
                cases (ragged rows, NaN/±inf, one tree); flash_attention and
                decode_attention within 2e-5 (float32) and 2e-2 (bfloat16)
-               over GQA groups 1, 2, 4 and 5, head dims 64, 128 and 256,
-               causal / window 64 / softcap 30 / bidirectional, ragged S, T
-               and cache lengths; rwkv6_scan and ssd_scan within 3e-4 on y
+               over GQA groups 1, 2, 4, 5 and (decode) 12, head dims 64,
+               128 and 256, causal / window 64 / softcap 30 /
+               bidirectional, ragged S, T and cache lengths, and for
+               decode Hymba's ring and global caches, lengths on and
+               either side of its split boundaries and a row of length 0;
+               decode_attention captured in a CUDA graph, replayed after
+               its lengths, k and v change in place, must equal an eager
+               call bitwise; rwkv6_scan and ssd_scan within 3e-4 on y
                and on the final state, on float32 inputs and on the LM
                paths' dtypes and layout, at the JAX kernel tests' shapes,
                under strong decay (finite), with S off the chunk and B > 1,
                one step alone, under strong decay across many chunks with
                B > 1 (the state pass between chunks), and at their LM
-               paths' shapes.  Times each
-               kernel, its plain version and
+               paths' shapes.  Times each kernel, its plain version and
                (where one exists) the one PyTorch call that computes the
                same function at the main paths' shapes, two ways: ``ms``
                (one wrapper call between CUDA events, host time included)
                and ``device_ms`` (the profiler's device time of 50
                back-to-back launches of the bound C entry point, / 50).
+               decode_attention is timed at each LM path's decode shape
+               (MiniCPM-2B's cache, Hymba's ring and global caches) with a
+               cold L2: its 50 wrapper calls, and masked SDPA's, rotate
+               over copies of the caches that add up to 100 MB read.
 4. main     — the query path, as a user drives it: a ``ModelStore`` on the
                card holding the hospital tables at 1,000,000 patients each,
                a 64-tree depth-8 random forest over quickstart's seven
@@ -56,8 +64,9 @@ Phases (each prints JSON lines; any failure exits non-zero):
                must then equal layers x prefills (flash_attention and the
                family's scan) and layers x decode steps (decode_attention),
                and zero for kernels the family does not run.  Reports
-               prefill ms, decode-step ms, tokens/s, peak memory and the
-               decode step's device-idle share.
+               prefill ms, decode-step ms, tokens/s, peak memory, the
+               decode step's device-idle share and decode_attention's
+               device time a step.
 7. <path>_check — one request's output alone equals its output in the full
                batch; the card's prefill logits for that prompt, through
                the first 2 layers at full width, agree with the port's CPU
@@ -66,11 +75,17 @@ Phases (each prints JSON lines; any failure exits non-zero):
 
 Then one ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
 {...}}``.  The script imports nothing of JAX or of the JAX package.
+
+``python3 chip_smoke.py --decode-cold`` runs phase 1 and only
+decode_attention's cold-L2 timings; a copy of this file in an unpacked
+earlier checkout times that checkout's kernel with the same timer.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -532,6 +547,39 @@ DECODE_SHAPES = [  # (b, t, h, kv, d): groups 1, 4, 2, 2, 5
     (4, 1024, 36, 36, 64), (3, 777, 8, 2, 128), (2, 300, 8, 4, 256),
     (3, 129, 8, 4, 64), (2, 50, 40, 8, 128),
 ]
+# (name, (b, t, h, kv, d), lengths from (t, split_len), or None for random
+# ones from 1 with the first row at 1): Hymba's ring and global caches,
+# lengths on and either side of split boundaries with later splits empty,
+# a row of cache_len 0, and G = 12 (two tiles of query heads).
+DECODE_CASES = [
+    ("hymba_ring", (4, 1024, 25, 5, 64), None),
+    ("hymba_global", (4, 2048, 25, 5, 64), None),
+    ("split_edges", (4, 1024, 25, 5, 64),
+     lambda t, sl: [sl, sl + 1, sl - 1, 3 * sl]),
+    ("split_edges_mha", (4, 1024, 36, 36, 64),
+     lambda t, sl: [sl - 1, sl, sl + 1, t]),
+    ("len0", (3, 300, 8, 2, 128), lambda t, sl: [0, 1, t]),
+    ("g12", (2, 400, 24, 2, 64), None),
+]
+# The decode shapes of the LM paths, bfloat16, at the cache lengths halfway
+# through the decode of four prompts (n + LM_NEW_TOKENS // 2): MiniCPM-2B
+# (36 heads of 64 over a cache of max_len 1024) on its first four prompts;
+# Hymba-1.5B (25 query and 5 KV heads of 64) on 517, 699, 1010 and 1300,
+# over its local layers' ring of 1024 slots (lengths clamped to it) and its
+# global layers' cache of max_len 2048.
+_HALF = LM_NEW_TOKENS // 2
+DECODE_PATH_SHAPES = {
+    "lm": (LM_SLOTS, 1024, 36, 36, 64,
+           [n + _HALF for n in LM_PROMPT_LENS[:4]]),
+    "lm_hymba_local": (LM_SLOTS, 1024, 25, 5, 64,
+                       [min(n + _HALF, 1024) for n in HYMBA_PROMPT_LENS[2:]]),
+    "lm_hymba_global": (LM_SLOTS, 2048, 25, 5, 64,
+                        [n + _HALF for n in HYMBA_PROMPT_LENS[2:]]),
+}
+# A cold L2: the timed launches rotate over copies of the caches whose
+# touched bytes add up to at least twice the card's 50 MB L2, as in a
+# decode step, where no layer's cache is still in L2.
+COLD_BYTES = 100e6
 
 
 def flash_bound_ms(b, s, t, h, kv, d, causal, itemsize, peak_flops):
@@ -557,11 +605,13 @@ def decode_bound_ms(lens, h, kv, d, itemsize, peak_flops):
             "operations" if by_ops >= by_bytes else "bytes")
 
 
-def phase_attention_kernels(engine_lens):
+def phase_attention_kernels():
     """flash_attention and decode_attention against their plain versions on
-    the card over every option, then timed at the LM path's shapes: one
-    prefill of the longest prompt (B 1, S = T = 699, 36 heads of 64,
-    bfloat16, causal) and one decode step (B 4, T 1024, ``engine_lens``)."""
+    the card over every option, then timed at the LM paths' shapes: one
+    prefill of MiniCPM-2B's longest prompt (B 1, S = T = 699, 36 heads of
+    64, bfloat16, causal) and a decode step at each of
+    ``DECODE_PATH_SHAPES`` with a cold L2; decode_attention captured in a
+    CUDA graph must replay bitwise equal to an eager call."""
     import torch
     import torch.nn.functional as F
 
@@ -598,36 +648,45 @@ def phase_attention_kernels(engine_lens):
                     fail(f"flash_attention {dname} {mname} {(b, s, t, h, kv, d)}"
                          f" differs from its plain version by {err}")
                 worst["flash_attention"] = max(worst["flash_attention"], err)
-        for (b, t, h, kv, d) in DECODE_SHAPES:
+        from repro_torch.kernels.decode_attention.decode_attention import \
+            split_layout
+        cases = [("random", shape, None) for shape in DECODE_SHAPES] \
+            + DECODE_CASES
+        for name, (b, t, h, kv, d), lens_of in cases:
             q, k, v = (randn((b, 1, h, d), dtype), randn((b, t, kv, d), dtype),
                        randn((b, t, kv, d), dtype))
-            lens = torch.randint(1, t + 1, (b,), generator=gen, device=dev,
-                                 dtype=torch.int32)
-            lens[0] = 1
+            if lens_of is None:
+                lens = torch.randint(1, t + 1, (b,), generator=gen,
+                                     device=dev, dtype=torch.int32)
+                lens[0] = 1
+            else:
+                split_len = split_layout(t)[1]
+                lens = torch.tensor(lens_of(t, split_len), dtype=torch.int32,
+                                    device=dev)
             for cap in (0.0, 30.0):
                 got = d_ops.decode_attention(q, k, v, lens, cap)
                 want = decode_attention_ref(q, k, v, lens, cap)
                 torch.cuda.synchronize()
                 if not torch.isfinite(got).all():
-                    fail(f"decode_attention {dname}: output not finite")
+                    fail(f"decode_attention {dname} {name}: output not "
+                         f"finite")
                 err = float((got.float() - want.float()).abs().max())
                 emit({"phase": "kernels", "kernel": "decode_attention",
-                      "dtype": dname, "softcap": cap, "groups": h // kv,
+                      "case": name, "dtype": dname, "softcap": cap,
+                      "groups": h // kv,
                       "shape": {"q": [b, 1, h, d], "cache": [b, t, kv, d]},
                       "cache_len": lens.tolist(), "max_abs_err": err,
                       "tol": ATT_TOL[dname]})
                 if err > ATT_TOL[dname]:
-                    fail(f"decode_attention {dname} {(b, t, h, kv, d)} "
-                         f"softcap {cap} differs from its plain version by "
-                         f"{err}")
+                    fail(f"decode_attention {dname} {name} "
+                         f"{(b, t, h, kv, d)} softcap {cap} differs from "
+                         f"its plain version by {err}")
                 worst["decode_attention"] = max(worst["decode_attention"],
                                                 err)
 
-    # Timings at the LM path's shapes (MiniCPM-2B: 36 heads of 64, MHA).
+    # Flash attention timed at MiniCPM-2B's prefill (36 heads of 64, MHA).
     # Device times: q, k, v and out (12.9 MB) stay warm in L2 between the
     # back-to-back launches, for the kernel and for SDPA alike.
-    from repro_torch.kernels.decode_attention.decode_attention import \
-        decode_attention_cuda
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention_cuda
     bf16 = torch.bfloat16
@@ -659,43 +718,151 @@ def phase_attention_kernels(engine_lens):
     emit({"phase": "kernels", "kernel": "flash_attention",
           "timing": flash_row, "q": [1, s, 36, 64], "dtype": "bfloat16"})
 
-    b, t = LM_SLOTS, LM_PATHS["lm"][1]
-    q = randn((b, 1, 36, 64), bf16)
-    kc, vc = randn((b, t, 36, 64), bf16), randn((b, t, 36, 64), bf16)
-    lens = torch.tensor(engine_lens, dtype=torch.int32, device=dev)
-    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None])[:, None,
-                                                                  None, :]
-    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
-    err = float((d_ops.decode_attention(q, kc, vc, lens).float()
-                 - decode_attention_ref(q, kc, vc, lens).float()).abs().max())
-    if err > ATT_TOL["bfloat16"]:
-        fail(f"decode_attention at the engine's shape differs by {err}")
-    bound, by = decode_bound_ms(list(engine_lens), 36, 36, 64, 2,
-                                PEAK_BF16_FLOPS)
-    # Device times: the caches (37.7 MB) stay in L2 between launches.
-    out = torch.empty_like(q)
-    dev_ms = device_ms(
-        lambda: decode_attention_cuda(q, kc, vc, lens, out, 0.0))
+    check_decode_graph(gen)
+    rows = {name: decode_cold_row(d_ops, name, gen)
+            for name in DECODE_PATH_SHAPES}
     decode_row = {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces":
             "src/repro/kernels/decode_attention/decode_attention.py:91",
-        "max_abs_err": max(worst["decode_attention"], err),
-        "ms": cuda_ms(lambda: d_ops.decode_attention(q, kc, vc, lens),
-                      runs=20),
-        "device_ms": dev_ms,
-        "plain_ms": cuda_ms(lambda: decode_attention_ref(q, kc, vc, lens)),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, enable_gqa=True), runs=20),
-        "library_device_ms": device_ms(
-            lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask, enable_gqa=True))}
-    emit({"phase": "kernels", "kernel": "decode_attention",
-          "timing": decode_row, "q": [b, 1, 36, 64], "cache": [b, t, 36, 64],
-          "cache_len": list(engine_lens), "dtype": "bfloat16"})
+        "max_abs_err": max([worst["decode_attention"]]
+                           + [r["max_abs_err"] for r in rows.values()]),
+        # the headline numbers are MiniCPM-2B's; every path shape's row
+        # is in by_shape
+        **{k: rows["lm"][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")},
+        "by_shape": rows}
     return flash_row, decode_row
+
+
+def _rotate(calls):
+    """One callable that runs ``calls`` in turn, one a call."""
+    turn = itertools.cycle(calls)
+    return lambda: next(turn)()
+
+
+def decode_cold_row(d_ops, name, gen) -> dict:
+    """``d_ops.decode_attention`` at the LM path shape ``name`` of
+    ``DECODE_PATH_SHAPES`` against its plain version, then timed with a
+    cold L2: ``device_ms`` (and ``device_ms_by_pass``) is the profiler's
+    device time of DEVICE_RUNS wrapper calls, / DEVICE_RUNS, rotating over
+    enough copies of the caches that the slots they read add up to
+    COLD_BYTES; ``library_device_ms`` is masked SDPA over [B,H,T,D] copies
+    of the same caches, rotated alike.  ``ms`` (one wrapper call, host
+    time included), ``plain_ms`` and ``library_ms`` are warm."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    b, t, h, kv, d, lens = DECODE_PATH_SHAPES[name]
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    touched = 2.0 * 2 * sum(lens) * kv * d         # k and v rows, bf16
+    copies = max(2, math.ceil(COLD_BYTES / touched))
+    q = randn((b, 1, h, d))
+    caches = [(randn((b, t, kv, d)), randn((b, t, kv, d)))
+              for _ in range(copies)]
+    cache_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kc, vc = caches[0]
+    err = float((d_ops.decode_attention(q, kc, vc, cache_len).float()
+                 - decode_attention_ref(q, kc, vc, cache_len).float())
+                .abs().max())
+    if err > ATT_TOL["bfloat16"]:
+        fail(f"decode_attention at the {name} shape differs by {err}")
+    passes = {}
+    dev_ms = device_ms(_rotate([
+        lambda kc=kc, vc=vc: d_ops.decode_attention(q, kc, vc, cache_len)
+        for kc, vc in caches]), by_kernel=passes)
+    ms = cuda_ms(lambda: d_ops.decode_attention(q, kc, vc, cache_len),
+                 runs=20)
+    plain_ms = cuda_ms(lambda: decode_attention_ref(q, kc, vc, cache_len))
+
+    qh = q.transpose(1, 2).contiguous()
+    mask = (torch.arange(t, device=dev)[None, :]
+            < cache_len[:, None])[:, None, None, :]
+    heads = [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+             for k, v in caches]
+    del caches, kc, vc
+
+    def sdpa(kh, vh):
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              enable_gqa=True)
+    lib_dev = device_ms(_rotate([lambda kh=kh, vh=vh: sdpa(kh, vh)
+                                 for kh, vh in heads]))
+    bound, by = decode_bound_ms(lens, h, kv, d, 2, PEAK_BF16_FLOPS)
+    row = {"shape": name, "q": [b, 1, h, d], "cache": [b, t, kv, d],
+           "cache_len": list(lens), "dtype": "bfloat16", "max_abs_err": err,
+           "device_ms": dev_ms, "device_ms_by_pass": passes, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_device_ms": lib_dev,
+           "library_ms": cuda_ms(lambda: sdpa(*heads[0]), runs=20),
+           "cold_copies": copies, "touched_bytes": touched}
+    emit({"phase": "kernels", "kernel": "decode_attention", "timing": row})
+    return row
+
+
+def check_decode_graph(gen) -> None:
+    """One decode_attention call at Hymba's ring shape captured in a CUDA
+    graph; the lengths (one of them 0), k and v then change in place, and
+    the replay must equal an eager call on the same inputs bitwise."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as d_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    b, t, h, kv, d, lens = DECODE_PATH_SHAPES["lm_hymba_local"]
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    q, k, v = randn((b, 1, h, d)), randn((b, t, kv, d)), randn((b, t, kv, d))
+    cache_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm up outside the capture
+        d_ops.decode_attention(q, k, v, cache_len)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = d_ops.decode_attention(q, k, v, cache_len)
+    new_lens = [17, t - 24, 0, t]
+    cache_len.copy_(torch.tensor(new_lens, dtype=torch.int32, device=dev))
+    k.copy_(randn(k.shape))
+    v.copy_(randn(v.shape))
+    graph.replay()
+    eager = d_ops.decode_attention(q, k, v, cache_len)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(out, eager))
+    err = float((out.float() - decode_attention_ref(q, k, v, cache_len)
+                 .float()).abs().max())
+    emit({"phase": "kernels", "kernel": "decode_attention",
+          "case": "cuda_graph", "cache": [b, t, kv, d],
+          "cache_len_captured": list(lens), "cache_len_replayed": new_lens,
+          "replay_equals_eager": equal, "max_abs_err": err,
+          "tol": ATT_TOL["bfloat16"]})
+    if not equal or err > ATT_TOL["bfloat16"]:
+        fail(f"decode_attention replayed from a CUDA graph: bitwise equal "
+             f"to eager {equal}, {err} from its plain version")
+    del graph
+
+
+def phase_decode_cold() -> None:
+    """``--decode-cold``: only decode_attention's cold-L2 rows at the LM
+    paths' shapes, through the wrapper of the tree this file sits in (a
+    copy of this file in an unpacked earlier checkout times that tree's
+    kernel with the same timer)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as d_ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    for name in DECODE_PATH_SHAPES:
+        decode_cold_row(d_ops, name, gen)
 
 
 # -- phase 3, scans ------------------------------------------------------------
@@ -1046,6 +1213,9 @@ def profile_decode(name, model, params, cache, step_ms, steps=3):
                 + e.time_range.elapsed_us() / 1e3 / steps
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # decode_attention's two kernels (split, combine), per step
+    attn = sum(ms for n, ms in by_name.items()
+               if re.search(r"\bdecode_(split|combine)_kernel\b", n))
     emit({"phase": name, "step": "profile_decode", "steps": steps,
           "device_busy_ms_per_step": busy if by_name else None,
           "step_ms": step_ms,
@@ -1053,6 +1223,7 @@ def profile_decode(name, model, params, cache, step_ms, steps=3):
           "kernels_per_step": sum(1 for e in prof.events()
                                   if e.device_type == DeviceType.CUDA)
           / steps,
+          "decode_attention_ms_per_step": attn,
           "top_kernels_ms": [[n[:80], ms] for n, ms in top]})
 
 
@@ -1125,6 +1296,23 @@ def phase_lm_check(name, cfg, model, params, prompts, done):
              f"the CPU margin is clear")
 
 
+def decode_gap_s(decode_row, lm_launches) -> float:
+    """Launches x (device_ms - bound) of decode_attention over the LM
+    paths, in seconds: MiniCPM-2B's launches at its shape's row, Hymba's
+    split between its local (ring) and global layers at theirs."""
+    from repro_torch.configs import get_config
+    rows = decode_row["by_shape"]
+
+    def gap(name):
+        return rows[name]["device_ms"] - rows[name]["bound_ms"]
+    hymba = get_config(LM_PATHS["lm_hymba"][0])
+    n_global = len(hymba.global_layers)
+    per_launch = ((hymba.n_layers - n_global) * gap("lm_hymba_local")
+                  + n_global * gap("lm_hymba_global")) / hymba.n_layers
+    return (lm_launches["lm"]["decode_attention"] * gap("lm")
+            + lm_launches["lm_hymba"]["decode_attention"] * per_launch) / 1e3
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1134,6 +1322,9 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
 
     smi = phase_device()
+    if sys.argv[1:] == ["--decode-cold"]:
+        phase_decode_cold()
+        return
     phase_build()
 
     from repro_torch.core.rules.nn_translation import CUDA_PAD
@@ -1153,8 +1344,7 @@ def main() -> None:
     x_main = pipe.transform(cols)          # query (a)'s features, on card
     row = phase_kernels(ens, ens_pad8, x_main)
 
-    lens = [n + LM_NEW_TOKENS // 2 for n in LM_PROMPT_LENS[:LM_SLOTS]]
-    flash_row, decode_row = phase_attention_kernels(lens)
+    flash_row, decode_row = phase_attention_kernels()
     wkv_row, ssd_row = phase_scan_kernels()
 
     outs, launches = phase_main(tables, pipe)
@@ -1172,6 +1362,8 @@ def main() -> None:
         return {**rows, "launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
+    decode_row["launch_weighted_gap_s"] = decode_gap_s(decode_row,
+                                                       lm_launches)
     print(smi, flush=True)      # the card beside the numbers, again
     emit({"kernels": [
         {**row, "launches": launches},

@@ -3,8 +3,16 @@
 A CUDA tensor launches the hand-written kernel (``decode_attention.py``) or
 raises; a CPU tensor takes the plain version (``ref.py``), the counterpart
 of the JAX package running its Pallas kernel with ``interpret=True``.  There
-is no fallback from one to the other.  ``launches`` counts kernel launches
-(and nothing else), so a run can show that it went through the kernel.
+is no fallback from one to the other.  ``launches`` counts wrapper calls
+that launched the kernel (and nothing else), so a run can show that it went
+through the kernel: one a call, though the C entry point runs two kernels
+(the splits of the cache, then their combine).
+
+The split layout comes from the cache's length T alone
+(``decode_attention.split_layout``) and the scratch for the splits'
+partials from ``torch.empty``: the wrapper reads no length on the host and
+never synchronizes, so a call can be captured in a CUDA graph and replayed
+with new lengths and cache contents.
 """
 
 from __future__ import annotations
@@ -76,8 +84,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device "
                          f"{q.device}")
-    from .decode_attention import decode_attention_cuda
+    from .decode_attention import decode_attention_cuda, scratch_floats
+    b, _, h, d = q.shape
     out = torch.empty_like(q)
-    decode_attention_cuda(q, k_cache, v_cache, cache_len, out, softcap)
+    scratch = torch.empty(scratch_floats(b, h, d, k_cache.shape[1]),
+                          dtype=torch.float32, device=q.device)
+    decode_attention_cuda(q, k_cache, v_cache, cache_len, out, softcap,
+                          scratch)
     launches += 1
     return out

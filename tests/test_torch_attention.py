@@ -13,13 +13,18 @@ draws to bfloat16 on both sides) go through:
   max in the plain version, and the output is rounded to bfloat16);
 - the JAX ``models/attention.py`` (blockwise, p kept in float32) and the
   port's ``models/attention.py``: 2e-5 in float32, where rounding p to v's
-  dtype is a no-op, and 2e-2 in bfloat16.
+  dtype is a no-op, and 2e-2 in bfloat16;
+- the Pallas decode kernel in interpret mode and the port's mirror of its
+  CUDA kernel's split of the cache and combine
+  (``decode_attention_split_ref``), at the same tolerances: the mirror
+  rounds p against each split's own max.
 
 The CUDA kernels themselves are held against the plain versions on the card
 by ``tests/test_torch_kernels_cuda.py``, which imports no JAX.
 """
 
 import dataclasses
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +37,12 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.models import attention as jax_attn
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention import ops as decode_ops
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention import \
+    decode_attention as decode_kernel
+from repro_torch.kernels.decode_attention.decode_attention import (
+    scratch_floats, split_layout)
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, decode_attention_split_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import attention as attn
@@ -125,6 +135,109 @@ def test_decode_plain_ignores_slots_past_cache_len():
     v2[0, 5:] = -1e3
     torch.testing.assert_close(decode_ops.decode_attention(q, k2, v2, lens),
                                out, rtol=0, atol=0)
+
+
+# The split mirror over every group size the configs use and more (G 12
+# takes two tiles of 8 query heads in the kernel), every head dim and both
+# dtypes; T 96 with rows of length 0, 1, T and on and either side of the
+# boundaries of 2 and 3 splits (48 and 32 slots); split counts 1, 2, 3, 7
+# (splits of 14, the last one 12) and one slot a split.
+_SPLIT_LENS = [0, 1, 31, 32, 33, 47, 48, 49, 96]
+_SPLIT_COUNTS = [1, 2, 3, 7, 96]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 4, 5, 8, 12])
+def test_decode_split_ref_matches_pallas_interpret(g, d, dtype):
+    kv, t = 2, 96
+    b = len(_SPLIT_LENS)
+    rng = np.random.default_rng(g * 1000 + d)
+    (jq, q), (jk, k), (jv, v) = (_normal(rng, (b, 1, g * kv, d), dtype),
+                                 _normal(rng, (b, t, kv, d), dtype),
+                                 _normal(rng, (b, t, kv, d), dtype))
+    lens = np.array(_SPLIT_LENS, np.int32)
+    for cap in (0.0, 30.0):
+        want = jax_decode(jq, jk, jv, jnp.asarray(lens), softcap=cap,
+                          block_k=128, interpret=True)
+        plain = decode_attention_ref(q, k, v, torch.from_numpy(lens),
+                                     softcap=cap)
+        for n_splits in _SPLIT_COUNTS:
+            got = decode_attention_split_ref(q, k, v, torch.from_numpy(lens),
+                                             softcap=cap, n_splits=n_splits)
+            assert got.dtype == q.dtype and got.shape == q.shape
+            _close(got, want, _TOL[dtype])
+            _close(got, plain.float().numpy(), _TOL[dtype])
+
+
+def test_split_layout_is_fixed_by_shapes():
+    """The split count and length come from the cache's length T alone:
+    no length in it (and no batch size, head count or card) enters, and
+    the splits cover the cache."""
+    import inspect
+    assert list(inspect.signature(split_layout).parameters) == ["t"]
+    assert split_layout(1024) == (16, 64)     # MiniCPM-2B, Hymba's ring
+    assert split_layout(2048) == (32, 64)     # Hymba's global layers
+    assert split_layout(50) == (1, 64)
+    assert split_layout(32768) == (64, 512)   # splits capped at 512 slots
+    for t in (1, 50, 63, 64, 65, 777, 1024, 2048, 2049, 16384, 32768):
+        n, sl = split_layout(t)
+        assert sl % 64 == 0 and 64 <= sl <= 512
+        assert n * sl >= t > (n - 1) * sl
+        assert n <= 32 or sl == 512
+    # the partials (m, l, acc[D]) of every split, batch row and query head
+    assert scratch_floats(4, 25, 64, 2048) == 4 * 25 * 32 * 66
+    # the longest split is the CUDA source's (its scores sit in shared
+    # memory)
+    source = decode_kernel.SOURCE.read_text()
+    assert re.search(r"constexpr int kMaxSplit = (\d+);", source).group(1) \
+        == str(decode_kernel.MAX_SPLIT)
+
+
+def test_decode_split_rows_are_independent():
+    """A row's output does not move, bit for bit, when another row's
+    length, k or v changes: the layout is the same for every row."""
+    rng = np.random.default_rng(21)
+    _, q = _normal(rng, (4, 1, 25, 64), "bfloat16")
+    _, k = _normal(rng, (4, 1024, 5, 64), "bfloat16")
+    _, v = _normal(rng, (4, 1024, 5, 64), "bfloat16")
+    n_splits, _ = split_layout(1024)
+    lens = torch.tensor([533, 715, 1024, 64], dtype=torch.int32)
+    out = decode_attention_split_ref(q, k, v, lens, n_splits=n_splits)
+    k2, v2 = k.clone(), v.clone()
+    k2[1:] = -k2[1:]
+    v2[1:] = 2 * v2[1:]
+    for new_lens in ([533, 0, 1, 2], [533, 1024, 65, 700]):
+        got = decode_attention_split_ref(q, k2, v2, torch.tensor(
+            new_lens, dtype=torch.int32), n_splits=n_splits)
+        torch.testing.assert_close(got[0], out[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_ring_cache_equals_unwrapped(dtype):
+    """A decode ring (Hymba's local layers): once the ring wraps, slot
+    pos % T holds position pos, so the valid slots are out of order and a
+    split mixes old and new positions.  The output equals that of the same
+    rows in position order."""
+    t, kv, g, d = 256, 2, 5, 64
+    rng = np.random.default_rng(22)
+    _, q = _normal(rng, (2, 1, g * kv, d), dtype)
+    _, k = _normal(rng, (2, t, kv, d), dtype)    # by position p0 .. p0+t-1
+    _, v = _normal(rng, (2, t, kv, d), dtype)
+    lens = torch.tensor([t, t], dtype=torch.int32)
+    first = torch.tensor([300, 777])             # p0 of each row
+    slots = (first[:, None] + torch.arange(t)[None, :]) % t
+    kr, vr = torch.empty_like(k), torch.empty_like(v)
+    for row in range(2):
+        kr[row, slots[row]] = k[row]
+        vr[row, slots[row]] = v[row]
+    want = decode_attention_ref(q, k, v, lens)
+    for n_splits in (1, 4, split_layout(t)[0]):
+        _close(decode_attention_split_ref(q, kr, vr, lens,
+                                          n_splits=n_splits),
+               want.float().numpy(), _TOL[dtype])
+    _close(decode_ops.decode_attention(q, kr, vr, lens),
+           want.float().numpy(), _TOL[dtype])
 
 
 @pytest.mark.parametrize("case", ["head_dim", "dtype", "groups", "device",

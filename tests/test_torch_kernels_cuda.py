@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention.decode_attention import \
+    split_layout
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -204,8 +206,11 @@ def test_flash_attention_bf16_refuses_misaligned_base(cuda_device):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", [  # (b, t, h, kv, d): groups 1, 4, 2, 5
     (4, 1024, 36, 36, 64), (3, 777, 8, 2, 128), (2, 300, 8, 4, 256),
-    (3, 129, 8, 4, 64), (2, 50, 40, 8, 128)], ids=lambda s: "x".join(
-        map(str, s)))
+    (3, 129, 8, 4, 64), (2, 50, 40, 8, 128),
+    # Hymba-1.5B's ring and global caches (25 query, 5 KV heads), and G 12
+    # (two tiles of query heads)
+    (4, 1024, 25, 5, 64), (4, 2048, 25, 5, 64), (2, 400, 24, 2, 64)],
+    ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("cap", [0.0, 30.0], ids=["plain", "softcap30"])
 def test_decode_attention_kernel_matches_plain(shape, dtype, cap,
                                                cuda_device):
@@ -223,6 +228,67 @@ def test_decode_attention_kernel_matches_plain(shape, dtype, cap,
     assert decode_ops.launches == before + 1
     want = decode_attention_ref(q, k, v, lens, softcap=cap)
     assert float((got.float() - want.float()).abs().max()) <= _ATT_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["split_edges", "split_edges_mha", "len0"])
+def test_decode_attention_kernel_at_split_edges(case, dtype, cuda_device):
+    """Lengths on and either side of the kernel's split boundaries, with
+    later splits left empty, and a row of cache_len 0 (the plain mean over
+    all T slots)."""
+    b, t, h, kv, d = {"split_edges": (4, 1024, 25, 5, 64),
+                      "split_edges_mha": (4, 1024, 36, 36, 64),
+                      "len0": (3, 300, 8, 2, 128)}[case]
+    sl = split_layout(t)[1]
+    lens = {"split_edges": [sl, sl + 1, sl - 1, 3 * sl],
+            "split_edges_mha": [sl - 1, sl, sl + 1, t],
+            "len0": [0, 1, t]}[case]
+    gen = torch.Generator().manual_seed(sl + d)
+    q = _randn(gen, (b, 1, h, d), dtype, cuda_device)
+    k = _randn(gen, (b, t, kv, d), dtype, cuda_device)
+    v = _randn(gen, (b, t, kv, d), dtype, cuda_device)
+    cache_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    for cap in (0.0, 30.0):
+        got = decode_ops.decode_attention(q, k, v, cache_len, softcap=cap)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        want = decode_attention_ref(q, k, v, cache_len, softcap=cap)
+        assert float((got.float() - want.float()).abs().max()) \
+            <= _ATT_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_decode_attention_replays_from_cuda_graph(cuda_device):
+    """A wrapper call captured in a CUDA graph at Hymba's ring shape: after
+    cache_len (one row to 0), k and v change in place, the replay equals
+    an eager call on the same inputs bitwise."""
+    b, t, h, kv, d = 4, 1024, 25, 5, 64
+    gen = torch.Generator().manual_seed(5)
+    q = _randn(gen, (b, 1, h, d), torch.bfloat16, cuda_device)
+    k = _randn(gen, (b, t, kv, d), torch.bfloat16, cuda_device)
+    v = _randn(gen, (b, t, kv, d), torch.bfloat16, cuda_device)
+    cache_len = torch.tensor([533, 715, 1024, 1024], dtype=torch.int32,
+                             device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_ops.decode_attention(q, k, v, cache_len)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_ops.decode_attention(q, k, v, cache_len)
+    cache_len.copy_(torch.tensor([17, 1000, 0, 1024], dtype=torch.int32))
+    k.copy_(_randn(gen, k.shape, torch.bfloat16, cuda_device))
+    v.copy_(_randn(gen, v.shape, torch.bfloat16, cuda_device))
+    graph.replay()
+    eager = decode_ops.decode_attention(q, k, v, cache_len)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    want = decode_attention_ref(q, k, v, cache_len)
+    assert float((out.float() - want.float()).abs().max()) \
+        <= _ATT_TOL[torch.bfloat16]
 
 
 # -- scans ----------------------------------------------------------------
