@@ -46,10 +46,32 @@ Phases (each prints JSON lines; any failure exits non-zero):
                with the tree strategy forced to traversal, dense GEMM, the
                CUDA kernel, and left to the measured crossover ("auto").
                The forced strategies must agree bitwise; the kernel's launch
-               count must rise.
+               count must rise.  "auto" (calibrated on the forest itself,
+               in the first "auto" query's plan time) must choose the
+               strategy whose forced run had the lowest model-operator time
+               (a runner-up within 10% counts), and predict that time
+               within a factor of 2; every strategy's predicted/measured
+               ratio is printed.
 5. check    — query (a) run on the card equals the same query run by the
                port on the CPU with traversal, bitwise.
-6. lm, lm_rwkv, lm_hymba — the LM paths, each a model at full width and
+6. service  — the main path through its front door, ``PredictionService``
+               on phase 4's store under the default optimizer config, with
+               one more table, ``scoring`` (pid and the seven features,
+               patient_info joined with blood_tests once, 1,000,000 rows):
+               queries (a)-(c) through ``svc.sql`` cold, then warm twice
+               (the second warm round compiles no plan and traces no new
+               signature; every answer bitwise equal to phase 4's "auto"
+               output; tree_gemm launches equal the service's executions);
+               16 coalesced requests over ``scoring`` slices of 1,000 to
+               65,536 rows (each bitwise equal to the request served alone,
+               launches equal executions); a service with 262,144-row
+               chunks over all of ``scoring`` (4 chunks, 4 launches, equal
+               to the unchunked answer); background admission (5 ms
+               budget) fed by 4 host threads with 64 requests, each
+               resolved within 60 s and equal to its request served alone,
+               then ``close()``; and ``explain(analyze=True)`` of query (a),
+               its per-operator times printed.
+7. lm, lm_rwkv, lm_hymba — the LM paths, each a model at full width and
                depth (random bfloat16 weights from a seeded generator on
                the card) served by ``InferenceEngine`` with 4 slots, greedy,
                32 new tokens a request: MiniCPM-2B (40 layers) and RWKV-6
@@ -67,14 +89,14 @@ Phases (each prints JSON lines; any failure exits non-zero):
                prefill ms, decode-step ms, tokens/s, peak memory, the
                decode step's device-idle share and decode_attention's
                device time a step.
-7. <path>_check — one request's output alone equals its output in the full
+8. <path>_check — one request's output alone equals its output in the full
                batch; the card's prefill logits for that prompt, through
                the first 2 layers at full width, agree with the port's CPU
                run of the same weights within 5% of the largest CPU logit,
                and their greedy tokens agree where the CPU margin is clear.
 
-Then one ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
-{...}}``.  The script imports nothing of JAX or of the JAX package.
+Then one ``{"kernels": [...]}`` line (tree_gemm's launches split by phase
+under ``launches_by_phase``), and last ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of the JAX package.
 
 ``python3 chip_smoke.py --decode-cold`` runs phase 1 and only
 decode_attention's cold-L2 timings; a copy of this file in an unpacked
@@ -468,6 +490,51 @@ def same(a, b) -> bool:
         for k in a)
 
 
+MODEL_OPS = ("predict_model", "tree_gemm")   # the model's operator, by form
+AUTO_SLACK = 1.10       # "auto" may pick a strategy this close to the best
+PREDICT_FACTOR = 2.0    # its prediction within this factor of the measured
+
+
+def model_op_ms(info) -> float:
+    """The model operator's time in a run's per-operator breakdown."""
+    return sum(info["ops_ms"].get(op, 0.0) for op in MODEL_OPS)
+
+
+def predicted_ms(info) -> dict:
+    """The cost model's per-strategy predictions (ms) from the optimizer's
+    ``tree_strategy`` report line: "rf: cuda (est rows 1e+06; cuda
+    17000us, traversal 70000us, gemm 300000us)"."""
+    if not info["predicted"]:
+        fail(f"\"auto\" logged no tree_strategy prediction: {info}")
+    costs = info["predicted"][0].split(";", 1)[1]
+    return {k: float(v) / 1e3
+            for k, v in re.findall(r"(\w+) ([\d.]+)us", costs)}
+
+
+def check_auto(q, infos) -> None:
+    """The "auto" strategy must be the one whose forced run had the
+    lowest model-operator time (a runner-up within AUTO_SLACK counts), and
+    its prediction for that strategy must lie within PREDICT_FACTOR of
+    that time."""
+    measured = {s: model_op_ms(infos[q, s]) for s in STRATEGIES[:-1]}
+    auto = infos[q, "auto"]
+    chosen = auto["chosen"]
+    pred = predicted_ms(auto)
+    ratios = {s: pred[s] / measured[s] for s in measured if s in pred}
+    best = min(measured, key=measured.get)
+    emit({"phase": "main", "query": q, "step": "auto_gate",
+          "chosen": chosen, "fastest": best, "measured_model_ms": measured,
+          "predicted_ms": pred, "predicted_over_measured": ratios,
+          "plan_ms": auto["plan_ms"]})
+    if measured[chosen] > AUTO_SLACK * measured[best]:
+        fail(f"query ({q}): \"auto\" chose {chosen} "
+             f"({measured[chosen]:.2f} ms), but {best} ran "
+             f"{measured[best]:.2f} ms")
+    if not 1 / PREDICT_FACTOR <= ratios.get(chosen, 0.0) <= PREDICT_FACTOR:
+        fail(f"query ({q}): \"auto\" predicted {chosen} at "
+             f"{pred.get(chosen)} ms, measured {measured[chosen]:.2f} ms")
+
+
 def phase_main(tables, pipe):
     import numpy as np
 
@@ -481,10 +548,11 @@ def phase_main(tables, pipe):
     store.register_model("rf", pipe)
     emit({"phase": "main", "step": "register", "rows": N_ROWS,
           "tables": sorted(tables), "seconds": time.perf_counter() - t0})
-    outs = {}
+    outs, infos = {}, {}
     for q, sql in QUERIES.items():
         for strategy in STRATEGIES:
             out, info = run_query(store, sql, strategy)
+            infos[q, strategy] = info
             h = host(out)
             live = int(h["valid"].sum())
             for k, v in h.items():
@@ -501,13 +569,14 @@ def phase_main(tables, pipe):
         for strategy in STRATEGIES[1:]:
             if not same(base, outs[q, strategy]):
                 fail(f"query ({q}): {strategy} differs from traversal")
+        check_auto(q, infos)
     launches = tg_ops.launches
     if launches == 0:
         fail("the main path never launched the tree_gemm kernel")
     emit({"phase": "main", "step": "agree", "queries": sorted(QUERIES),
           "strategies": list(STRATEGIES), "bitwise_equal": True,
           "tree_gemm_launches": launches})
-    return outs, launches
+    return outs, launches, store, infos
 
 
 def phase_check(tables, pipe, outs):
@@ -529,6 +598,229 @@ def phase_check(tables, pipe, outs):
           "cpu_seconds": time.perf_counter() - t0})
     if not all(equal.values()):
         fail(f"query (a) on the card differs from the CPU: {equal}")
+
+
+# -- phase 6: the main path's front door -------------------------------------
+
+SERVICE_SQL = "SELECT pid, PREDICT(MODEL='rf') AS s FROM scoring"
+SERVICE_SEED = 21
+SERVICE_REQUESTS = 16              # coalesced requests, rows drawn from:
+SERVICE_ROWS = (1_000, 65_536)
+SERVICE_CHUNK = 262_144            # chunked service: 1M rows -> 4 chunks
+BACKGROUND_THREADS = 4             # host threads submitting, each all
+                                   # SERVICE_REQUESTS requests (64 in all)
+BACKGROUND_BUDGET_S = 0.005
+
+
+def scoring_table(tables):
+    """One flat table: pid and the seven features, ``patient_info`` joined
+    with ``blood_tests`` on pid once, by the port's join on the host."""
+    from repro_torch.relational import ops as rel_ops
+    joined = rel_ops.join_unique(tables["patient_info"],
+                                 tables["blood_tests"], on="pid")
+    return joined.select(["pid"] + FEATURES)
+
+
+def rows_of(table, start, n):
+    return type(table)({k: v[start:start + n]
+                        for k, v in table.columns.items()},
+                       table.valid[start:start + n], table.schema)
+
+
+def phase_service(store, tables, main_outs, main_infos):
+    """The main path through its front door: the port's
+    ``PredictionService`` on ``phase_main``'s store, under the default
+    optimizer config (``"auto"``).  Cold then warm SQL, coalesced
+    override-table requests, a chunked service, background admission
+    from several host threads, and ``explain(analyze=True)``.  Returns
+    the tree_gemm launches it made."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import codegen
+    from repro_torch.kernels.tree_gemm import ops as tg_ops
+    from repro_torch.serve import AdmissionConfig, PredictionService
+    launches0 = tg_ops.launches
+    t0 = time.perf_counter()
+    store.register_table("scoring", scoring_table(tables))
+    scoring = store.get_table("scoring")
+    emit({"phase": "service", "step": "register", "table": "scoring",
+          "rows": scoring.capacity, "columns": list(scoring.names),
+          "seconds": time.perf_counter() - t0})
+
+    def stats(svc):
+        return dict(vars(svc.stats))
+
+    svc = PredictionService(store)
+    try:
+        # 1. queries (a)-(c) cold, then twice warm, through svc.sql
+        l0, s0 = tg_ops.launches, stats(svc)
+        rounds = []
+        for r in range(3):
+            if r == 2:
+                c2 = codegen.compile_stats["plans_compiled"]
+                j2 = svc.stats.jit_traces
+            ms = {}
+            for q, sql in QUERIES.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = svc.sql(sql)
+                ms[q] = (time.perf_counter() - t) * 1e3
+                if not same(host(out), main_outs[q, "auto"]):
+                    fail(f"service: query ({q}), round {r}, differs from "
+                         "phase_main's \"auto\" output")
+            rounds.append(ms)
+        compiles2 = codegen.compile_stats["plans_compiled"] - c2
+        traces2 = svc.stats.jit_traces - j2
+        launched = tg_ops.launches - l0
+        d = {k: v - s0[k] for k, v in stats(svc).items()}
+        emit({"phase": "service", "step": "sql",
+              "cold_ms": rounds[0], "warm_ms": rounds[1],
+              "warm2_ms": rounds[2],
+              "direct_ms": {q: main_infos[q, "auto"]["ms"]
+                            for q in QUERIES},
+              "warm_overhead_ms": {q: rounds[2][q]
+                                   - main_infos[q, "auto"]["ms"]
+                                   for q in QUERIES},
+              "second_warm_round": {"plans_compiled": compiles2,
+                                    "jit_traces": traces2},
+              "tree_gemm_launches": launched,
+              "batch_executions": d["batch_executions"],
+              "stats": {k: v for k, v in d.items() if v}})
+        if compiles2 or traces2:
+            fail(f"service: the second warm round compiled {compiles2} "
+                 f"plans and traced {traces2} signatures")
+        if launched != d["batch_executions"]:
+            fail(f"service: {launched} tree_gemm launches for "
+                 f"{d['batch_executions']} executions")
+
+        # 2. coalesced override-table requests, each vs served alone
+        rng = np.random.default_rng(SERVICE_SEED)
+        sizes = rng.integers(SERVICE_ROWS[0], SERVICE_ROWS[1] + 1,
+                             SERVICE_REQUESTS)
+        starts = rng.integers(0, scoring.capacity - sizes)
+        slices = [rows_of(scoring, int(a), int(n))
+                  for a, n in zip(starts, sizes)]
+        alone = [host(svc.run(SERVICE_SQL, {"scoring": t})) for t in slices]
+        l0, s0 = tg_ops.launches, stats(svc)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tickets = [svc.submit(SERVICE_SQL, {"scoring": t}) for t in slices]
+        served = svc.flush()
+        flush_ms = (time.perf_counter() - t) * 1e3
+        for i, (tk, want) in enumerate(zip(tickets, alone)):
+            if not same(host(tk.result(timeout=60)), want):
+                fail(f"service: coalesced request {i} differs from the "
+                     f"same request served alone")
+        launched = tg_ops.launches - l0
+        d = {k: v - s0[k] for k, v in stats(svc).items()}
+        emit({"phase": "service", "step": "coalesced",
+              "requests": SERVICE_REQUESTS, "served": served,
+              "rows": [int(n) for n in sizes], "stacked_rows": int(sum(sizes)),
+              "flush_ms": flush_ms,
+              "coalesced_requests": d["coalesced_requests"],
+              "bucket_compiles": svc.stats.bucket_compiles,
+              "jit_traces": svc.stats.jit_traces,
+              "batch_executions": d["batch_executions"],
+              "tree_gemm_launches": launched})
+        if served != SERVICE_REQUESTS \
+                or d["coalesced_requests"] != SERVICE_REQUESTS - 1 \
+                or launched != d["batch_executions"]:
+            fail(f"service: coalescing served {served} requests in "
+                 f"{d['batch_executions']} executions with {launched} "
+                 f"tree_gemm launches")
+
+        # 3. the same query over the whole table, chunked
+        whole = host(svc.sql(SERVICE_SQL))
+        csvc = PredictionService(store, chunk_rows=SERVICE_CHUNK)
+        try:
+            l0 = tg_ops.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = host(csvc.sql(SERVICE_SQL))
+            chunk_ms = (time.perf_counter() - t) * 1e3
+            launched = tg_ops.launches - l0
+            chunks = csvc.stats.chunks_executed
+        finally:
+            csvc.close()
+        want_chunks = -(-scoring.capacity // SERVICE_CHUNK)
+        emit({"phase": "service", "step": "chunked",
+              "chunk_rows": SERVICE_CHUNK, "chunks": chunks,
+              "tree_gemm_launches": launched, "cold_ms": chunk_ms,
+              "bitwise_equal_unchunked": same(got, whole)})
+        if chunks != want_chunks or launched != want_chunks:
+            fail(f"service: chunked run made {chunks} chunks and "
+                 f"{launched} tree_gemm launches, expected {want_chunks}")
+        if not same(got, whole):
+            fail("service: the chunked answer differs from the unchunked")
+
+        # 4. background admission from several host threads
+        bsvc = PredictionService(store, admission=AdmissionConfig(
+            background=True, latency_budget_s=BACKGROUND_BUDGET_S))
+        results = [[None] * len(slices) for _ in range(BACKGROUND_THREADS)]
+        errors = []
+
+        def worker(w):
+            try:
+                tks = [bsvc.submit(SERVICE_SQL, {"scoring": t})
+                       for t in slices]
+                for i, tk in enumerate(tks):
+                    results[w][i] = host(tk.result(timeout=60))
+            except Exception as err:     # reported, then fails the phase
+                errors.append(repr(err))
+
+        l0 = tg_ops.launches
+        t = time.perf_counter()
+        try:
+            threads = [threading.Thread(target=worker, args=(w,))
+                       for w in range(BACKGROUND_THREADS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=120)
+            hung = sum(th.is_alive() for th in threads)
+        finally:
+            tc = time.perf_counter()
+            bsvc.close()
+            close_s = time.perf_counter() - tc
+        wall_ms = (time.perf_counter() - t) * 1e3
+        info = bsvc.admission_info()
+        emit({"phase": "service", "step": "background",
+              "threads": BACKGROUND_THREADS,
+              "requests": BACKGROUND_THREADS * len(slices),
+              "latency_budget_s": BACKGROUND_BUDGET_S, "wall_ms": wall_ms,
+              "close_s": close_s,
+              "queue_p50_ms": info["queue_p50_ms"],
+              "queue_p95_ms": info["queue_p95_ms"],
+              "batch_executions": bsvc.stats.batch_executions,
+              "tree_gemm_launches": tg_ops.launches - l0,
+              "admission_info": info})
+        if hung or errors:
+            fail(f"service: background admission: {hung} threads hung, "
+                 f"errors {errors[:3]}")
+        for w in range(BACKGROUND_THREADS):
+            for i, want in enumerate(alone):
+                if not same(results[w][i], want):
+                    fail(f"service: background request {w}/{i} differs "
+                         f"from the same request served alone")
+
+        # 5. EXPLAIN ANALYZE of query (a): per-operator times
+        ex = svc.explain(QUERIES["a"], analyze=True)
+        emit({"phase": "service", "step": "explain_analyze", "query": "a",
+              "total_ms": ex.total_s * 1e3,
+              "operators_ms": ex.measured_s * 1e3,
+              "operators": [{"op": n.op, "ms": ex.samples[nid][0] * 1e3,
+                             "rows": ex.samples[nid][1]}
+                            for nid, n in ex.operators()
+                            if nid in ex.samples]})
+    finally:
+        svc.close()
+    launched = tg_ops.launches - launches0
+    emit({"phase": "service", "step": "done", "tree_gemm_launches": launched,
+          "seconds": time.perf_counter() - t0})
+    return launched
 
 
 # -- phase 3, attention ------------------------------------------------------
@@ -1347,9 +1639,11 @@ def main() -> None:
     flash_row, decode_row = phase_attention_kernels()
     wkv_row, ssd_row = phase_scan_kernels()
 
-    outs, launches = phase_main(tables, pipe)
+    outs, launches, store, infos = phase_main(tables, pipe)
     phase_check(tables, pipe, outs)
-    del tables, outs
+    service_launches = phase_service(store, tables, outs, infos)
+    del tables, outs, store
+    torch.cuda.empty_cache()
 
     lm_launches = {}
     for name in LM_PATHS:
@@ -1366,7 +1660,9 @@ def main() -> None:
                                                        lm_launches)
     print(smi, flush=True)      # the card beside the numbers, again
     emit({"kernels": [
-        {**row, "launches": launches},
+        {**row, "launches": launches + service_launches,
+         "launches_by_phase": {"main": launches,
+                               "service": service_launches}},
         on_paths("flash_attention", flash_row),
         on_paths("decode_attention", decode_row),
         on_paths("rwkv6_scan", wkv_row),

@@ -37,7 +37,7 @@ from .ir import Plan, plan_params
 
 __all__ = ["compile_plan", "execute", "resolve_params", "ExecutionConfig",
            "compile_stats", "reset_compile_stats", "add_compile_listener",
-           "add_trace_listener", "count_jit_trace"]
+           "add_trace_listener", "pow2_bucket", "count_jit_trace"]
 
 
 class ExecutionConfig:
@@ -56,12 +56,23 @@ class ExecutionConfig:
         self.external_latency_s = external_latency_s
         self.use_cuda_tree_gemm = use_cuda_tree_gemm
 
+    def cache_key(self) -> tuple:
+        """Hashable identity for compiled-executable caching: two configs
+        with equal knobs produce identical executables."""
+        return (self.container_latency_s, self.external_latency_s,
+                self.use_cuda_tree_gemm)
+
 
 # Observability hooks: every compile_plan() call counts under
-# ``plans_compiled``.  ``jit_traces`` counts shape-specialized recompiles
-# of a serving executable in the JAX package; execution here is eager, so
-# nothing increments it yet — the counter and its listener seam stay so
-# the serving layer keeps one metrics surface.
+# ``plans_compiled``.  ``jit_traces`` counts shape specializations of a
+# serving executable: execution is eager, so nothing is traced, but the
+# prediction service (``serve/prediction_service.py``, ``jit=True``) calls
+# ``count_jit_trace`` once per distinct input signature an executable
+# sees — each table's capacity and its columns' dtypes and trailing
+# shapes, plus the bound parameter names — which is exactly what a
+# tracing compiler would specialize on.  Plan compiles measure signature
+# misses, traces shape-driven specializations; the two stay separate so a
+# flat "compiles" number cannot hide unbounded shape churn.
 compile_stats: Dict[str, int] = {"plans_compiled": 0, "jit_traces": 0}
 _compile_listeners: List[Callable[[Plan], None]] = []
 _trace_listeners: List[Callable[[], None]] = []
@@ -77,6 +88,25 @@ def count_jit_trace() -> None:
     compile_stats["jit_traces"] += 1
     for listener in list(_trace_listeners):
         listener()
+
+
+def pow2_bucket(n: int, min_rows: int = 1, max_rows: int = 0) -> int:
+    """Row-count shape bucket: the smallest power-of-two >= ``n`` clamped
+    to ``[min_rows, max_rows]``.  Padding batches to bucketed shapes keeps
+    the number of distinct input signatures a query sees at
+    O(log max_rows/min_rows) no matter how batch sizes vary; beyond
+    ``max_rows`` the bucket grows in ``max_rows`` multiples (the count is
+    then linear in the overflow factor, which bounded queues keep small)."""
+    b = max(int(min_rows), 1)
+    if max_rows and n > max_rows:
+        return ((n + max_rows - 1) // max_rows) * max_rows
+    while b < n:
+        b <<= 1
+    # clamp: with a non-power-of-two max_rows the doubling can overshoot
+    # the cap even though n fits under it (still >= n in this branch)
+    if max_rows:
+        b = min(b, max_rows)
+    return b
 
 
 def add_compile_listener(fn: Callable[[Plan], None]) -> Callable[[], None]:

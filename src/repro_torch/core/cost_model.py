@@ -32,7 +32,8 @@ import torch
 from ..relational.expr import extract_constraints
 from .ir import Plan
 
-__all__ = ["CostParams", "backend_of", "estimate_rows", "tree_impl_costs",
+__all__ = ["CostParams", "backend_of", "estimate_rows", "estimate_slots",
+           "strategy_rows", "tree_impl_costs",
            "choose_tree_impl", "TreeStrategyCalibration",
            "measure_tree_calibration", "calibrated_tree_costs",
            "tree_strategy_costs", "choose_tree_strategy",
@@ -213,6 +214,45 @@ def estimate_rows(plan: Plan, catalog) -> Dict[str, float]:
     return rows
 
 
+def estimate_slots(plan: Plan, catalog) -> Dict[str, float]:
+    """Physical rows (slots, live or masked) at each table node's output.
+
+    The operators are masked-columnar: a filter clears validity bits and a
+    limit keeps the first live rows, but neither drops a slot, so an
+    operator above them — a model above all — evaluates every slot of its
+    input whatever the live-row estimate says.  Scans carry the table's
+    capacity, joins their left side's, aggregations one slot a group,
+    unions the sum of their inputs."""
+    slots: Dict[str, float] = {}
+    for nid in plan.topo_order():
+        n = plan.node(nid)
+        if n.op == "scan":
+            try:
+                slots[nid] = float(catalog.get_table(
+                    n.attrs["table"]).capacity)
+            except Exception:
+                slots[nid] = 1e6
+        elif n.op in ("group_agg", "partial_agg"):
+            slots[nid] = float(n.attrs.get("num_groups") or 64)
+        elif n.op == "union":
+            slots[nid] = sum(slots.get(i, 1e6) for i in n.inputs)
+        elif n.inputs:
+            slots[nid] = slots.get(n.inputs[0], 1e6)
+        else:
+            slots[nid] = 1e6
+    return slots
+
+
+def strategy_rows(plan: Plan, catalog) -> Dict[str, float]:
+    """The rows a tree-strategy choice prices at each node: on the card the
+    slots a model evaluates (:func:`estimate_slots`, what its per-model
+    calibration measures); on the CPU the live-row estimate its stand-in
+    calibration was tuned against (:func:`estimate_rows`)."""
+    if backend_of(catalog) == "cuda":
+        return estimate_slots(plan, catalog)
+    return estimate_rows(plan, catalog)
+
+
 def tree_impl_costs(model, n_rows: float, n_features: int,
                     params: CostParams) -> Dict[str, float]:
     """Per-query cost of the three implementations of a tree model."""
@@ -252,11 +292,21 @@ def choose_tree_impl(model, n_rows: float, n_features: int,
 #
 # The abstract CostParams ratios above are fine for rule ordering but were
 # wrong about the traversal/GEMM crossover on a CPU.  The strategy choice
-# runs on *measured* per-element constants: once per process we time a small
-# calibration forest through each strategy at two batch sizes, solve
-# time(n) = call_overhead + n * per_row for each, and cache the result both
-# module-wide and in the ModelStore so every optimizer instance sharing the
-# catalog reuses one measurement.
+# runs on *measured* per-element constants: each strategy is timed at two
+# batch sizes, time(n) = call_overhead + n * per_row is solved for each,
+# and the result is cached both module-wide and in the ModelStore so every
+# optimizer instance sharing the catalog reuses one measurement.
+#
+# On the CPU the timing runs once per process on a small stand-in forest
+# and the per-unit constants are extrapolated to the model at hand.  On the
+# card that extrapolation does not hold: traversal's cost per depth step
+# and the kernel's cost per flop change with the forest's shape (an 8-tree
+# depth-6 stand-in pads I and L to 128, the 64-tree depth-8 Fig 1 forest
+# to 256); on an H100 (chip_smoke.py) it ranked traversal 4x under the
+# kernel that ran 3x faster.
+# So the card times the strategies on the model's own trees, once per
+# model (keyed by its content fingerprint): the fitted line then *is* the
+# model's cost at any row count, with no extrapolation across shapes.
 # --------------------------------------------------------------------------
 
 _CAL_TREES, _CAL_DEPTH, _CAL_FEATURES = 8, 6, 8
@@ -328,36 +378,54 @@ def _cuda_flops_per_row(t, n_internal, n_leaves, n_out) -> float:
                       + n_out))
 
 
-def measure_tree_calibration(backend: str = "cpu"
+def measure_tree_calibration(backend: str = "cpu", model=None
                              ) -> TreeStrategyCalibration:
+    """Time each strategy at the backend's two batch sizes and fit the
+    per-unit constants.  ``model`` (the card only) is the forest to time:
+    the constants are then fitted on its own shape, so
+    :func:`tree_strategy_costs` reproduces its measured line exactly."""
     from ..kernels.tree_gemm import ops as tg_ops
-    from ..ml import (RandomForest, ensemble_to_gemm_mxu,
-                      predict_ensemble_gemm)
+    from ..ml import ensemble_to_gemm, predict_ensemble_gemm
+    from ..ml.hummingbird import ensemble_to_gemm_mxu
 
     device = torch.device("cuda" if backend == "cuda" else "cpu")
     rng = np.random.default_rng(7)
-    xf = rng.normal(size=(1024, _CAL_FEATURES)).astype(np.float32)
-    yf = (xf[:, 0] + xf[:, 1] > 0).astype(np.int32)
-    rf = RandomForest(n_trees=_CAL_TREES, max_depth=_CAL_DEPTH).fit(xf, yf)
-    ens = ensemble_to_gemm_mxu(rf.trees)
-    t = len(rf.trees)
-    depth = max(tt.depth for tt in rf.trees)
-    n_i, n_l, n_o = ens.a.shape[2], ens.c.shape[2], ens.e.shape[2]
+    if backend == "cuda" and model is not None:
+        trees = [model.tree] if model.kind == "decision_tree" \
+            else list(model.trees)
+        n_feat = int(trees[0].n_features)
+        trav = model.scorer(device)
+        # the two lowerings nn_translation builds for this forest: the
+        # dense strategy's (I, L padded to 8) and the kernel's (to 128)
+        dense = ensemble_to_gemm(trees, pad_to=8)
+        kernel = ensemble_to_gemm_mxu(trees)
+    else:
+        from ..ml import RandomForest
+        n_feat = _CAL_FEATURES
+        xf = rng.normal(size=(1024, n_feat)).astype(np.float32)
+        yf = (xf[:, 0] + xf[:, 1] > 0).astype(np.int32)
+        rf = RandomForest(n_trees=_CAL_TREES,
+                          max_depth=_CAL_DEPTH).fit(xf, yf)
+        trees = rf.trees
+        trav = rf.scorer(device)
+        dense = kernel = ensemble_to_gemm_mxu(rf.trees)
+    t = len(trees)
+    depth = max(tt.depth for tt in trees)
 
-    trav = rf.scorer(device)
-    dev_ens = ens.to_device(device)
+    dev_dense = dense.to_device(device)
+    dev_kernel = kernel.to_device(device)
     times = {}
     sizes = _CAL_SIZES[backend]
     for n in sizes:
         xs = torch.as_tensor(
-            rng.normal(size=(n, _CAL_FEATURES)).astype(np.float32),
+            rng.normal(size=(n, n_feat)).astype(np.float32),
             device=device)
         times[("trav", n)] = _time_call(trav, xs)
         times[("gemm", n)] = _time_call(
-            lambda v: predict_ensemble_gemm(dev_ens, v), xs)
+            lambda v: predict_ensemble_gemm(dev_dense, v), xs)
         if backend == "cuda":
             times[("cuda", n)] = _time_call(
-                lambda v: tg_ops.tree_gemm(dev_ens, v), xs)
+                lambda v: tg_ops.tree_gemm(dev_kernel, v), xs)
 
     n0, n1 = sizes
     step, trav_call = _fit_linear(n0, times[("trav", n0)],
@@ -365,38 +433,51 @@ def measure_tree_calibration(backend: str = "cpu"
     trav_step = step / (t * depth)
     slope, gemm_call = _fit_linear(n0, times[("gemm", n0)],
                                    n1, times[("gemm", n1)])
-    gemm_flop = slope / _dense_flops_per_row(t, n_i, n_l, n_o)
+    gemm_flop = slope / _dense_flops_per_row(
+        t, dense.a.shape[2], dense.c.shape[2], dense.e.shape[2])
     cuda_flop, cuda_call = None, 0.0
     if backend == "cuda":
         slope, cuda_call = _fit_linear(n0, times[("cuda", n0)],
                                        n1, times[("cuda", n1)])
-        cuda_flop = slope / _cuda_flops_per_row(t, n_i, n_l, n_o)
+        cuda_flop = slope / _cuda_flops_per_row(
+            t, kernel.a.shape[2], kernel.c.shape[2], kernel.e.shape[2])
     return TreeStrategyCalibration(
         backend=backend, trav_step=trav_step, trav_call=trav_call,
         gemm_flop=gemm_flop, gemm_call=gemm_call,
         cuda_flop=cuda_flop, cuda_call=cuda_call)
 
 
-_PROCESS_CALIBRATIONS: Dict[str, TreeStrategyCalibration] = {}
+_PROCESS_CALIBRATIONS: Dict[tuple, TreeStrategyCalibration] = {}
 
 
-def calibrated_tree_costs(backend: Optional[str] = None, catalog=None
-                          ) -> TreeStrategyCalibration:
-    """One measurement per (process, backend); the ModelStore doubles as a
-    cross-optimizer cache so every instance sharing a catalog reuses it.
-    ``backend=None`` means the catalog's device (:func:`backend_of`)."""
+def calibrated_tree_costs(backend: Optional[str] = None, catalog=None,
+                          model=None) -> TreeStrategyCalibration:
+    """One measurement per (process, backend) on the CPU, and per
+    (process, model) on the card, where ``model`` is timed at its own
+    shape; the ModelStore doubles as a cross-optimizer cache so every
+    instance sharing a catalog reuses it.  The card's key is
+    ``("tree_strategy", "cuda", <model content fingerprint>)``: a model
+    pays for its calibration once, in the plan time of its first
+    ``"auto"`` query.  ``backend=None`` means the catalog's device
+    (:func:`backend_of`)."""
     backend = backend or backend_of(catalog)
+    key = ("tree_strategy", backend)
+    if backend == "cuda" and model is not None:
+        from .model_store import content_fingerprint
+        key += (content_fingerprint(model),)
+    else:
+        model = None
     getter = getattr(catalog, "get_calibration", None)
     if getter is not None:
-        cached = getter(("tree_strategy", backend))
+        cached = getter(key)
         if cached is not None:
             return cached
-    cal = _PROCESS_CALIBRATIONS.get(backend)
+    cal = _PROCESS_CALIBRATIONS.get(key)
     if cal is None:
-        cal = measure_tree_calibration(backend)
-        _PROCESS_CALIBRATIONS[backend] = cal
+        cal = measure_tree_calibration(backend, model)
+        _PROCESS_CALIBRATIONS[key] = cal
     if getter is not None:
-        catalog.put_calibration(("tree_strategy", backend), cal)
+        catalog.put_calibration(key, cal)
     return cal
 
 
@@ -450,7 +531,7 @@ def choose_tree_strategy(model, n_rows: float, n_features: int,
     traversal unless a translated strategy's predicted win exceeds the
     calibration-noise margin (``_STRATEGY_MARGIN``).  Returns
     ``(strategy, costs)`` so callers can log the margin."""
-    cal = calibrated_tree_costs(backend, catalog)
+    cal = calibrated_tree_costs(backend, catalog, model)
     costs = tree_strategy_costs(model, n_rows, n_features, cal)
     best = min(costs, key=costs.get)
     if best != "traversal" and \

@@ -145,8 +145,9 @@ def _pick_tree_strategy(plan, chain, model, catalog, cfg, report,
     Precedence: an explicit ``cfg.tree_strategy`` wins; then the single-tree
     heuristic knob (``nn_translate_single_trees``: "always" forces the dense
     form, "never" keeps traversal); otherwise the *measured* cost-model
-    crossover (``choose_tree_strategy``, calibrated once per process and
-    cached in the ModelStore) decides per (n_rows, n_trees, depth, backend).
+    crossover (``choose_tree_strategy``, calibrated once per process — on
+    the card once per model, at its own shape — and cached in the
+    ModelStore) decides per (n_rows, n_trees, depth, backend).
     """
     forced = getattr(cfg, "tree_strategy", "auto")
     if forced != "auto":
@@ -157,9 +158,9 @@ def _pick_tree_strategy(plan, chain, model, catalog, cfg, report,
             return "gemm"
         if mode == "never":
             return "traversal"
-    from ..cost_model import choose_tree_strategy, estimate_rows
+    from ..cost_model import choose_tree_strategy, strategy_rows
     if not rows:
-        rows.update(estimate_rows(plan, catalog))
+        rows.update(strategy_rows(plan, catalog))
     n_feat = sum(f.mapping().n_features
                  for f in chain.featurize.attrs["featurizers"])
     n_rows = rows.get(chain.table_input, 1e6)

@@ -30,8 +30,8 @@ def _measured_strategy(n, plan, catalog, cfg, report) -> None:
     if n.attrs.get("tree_strategy") is not None:
         return
     try:
-        from ..cost_model import choose_tree_strategy, estimate_rows
-        rows = estimate_rows(plan, catalog)
+        from ..cost_model import choose_tree_strategy, strategy_rows
+        rows = strategy_rows(plan, catalog)
         n_rows = rows.get(n.inputs[0], 1e6) if n.inputs else 1e6
         model = n.attrs["model"]
         t0 = model.tree if model.kind == "decision_tree" else model.trees[0]

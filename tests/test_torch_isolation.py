@@ -61,6 +61,24 @@ def test_model_store_runs_on_the_card_or_raises():
     assert ModelStore(device="cpu").device.type == "cpu"
 
 
+def test_prediction_service_runs_on_the_card_or_raises():
+    """The service runs on its catalog's device: ``ModelStore()`` means the
+    card, so without one there is no service to build; a CPU service needs
+    ``ModelStore(device="cpu")``."""
+    from repro_torch.core import ModelStore
+    from repro_torch.serve import PredictionService
+    if torch.cuda.is_available():
+        svc = PredictionService(ModelStore())
+        assert svc.catalog.device.type == "cuda"
+        svc.close()
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            PredictionService(ModelStore())
+    svc = PredictionService(ModelStore(device="cpu"))
+    assert svc.catalog.device.type == "cpu"
+    svc.close()
+
+
 def test_cpu_store_moves_tables_to_its_device():
     import numpy as np
     from repro_torch.core import ModelStore

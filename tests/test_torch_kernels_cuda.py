@@ -370,3 +370,101 @@ def test_ssd_scan_kernel_matches_plain(shape, inputs, cuda_device):
     y_want, st_want = ssd_scan_ref(x, dt, a, bm, cm)
     assert float((y - y_want).abs().max()) <= _SCAN_TOL
     assert float((st - st_want).abs().max()) <= _SCAN_TOL
+
+
+# -- the prediction service on the card ---------------------------------------
+
+_SVC_FEATS = ["age", "gender", "pregnant", "rcount"]
+_SVC_SQL = ("SELECT pid, age, PREDICT(MODEL='rf') AS s FROM patient_info "
+            "WHERE age > 30")
+
+
+def _card_store(n_rows=3000):
+    from repro_torch.core import ModelStore
+    from repro_torch.data import hospital_tables
+    from repro_torch.ml import Pipeline, PipelineMetadata, StandardScaler
+    from repro_torch.relational.table import to_numpy
+    tables = hospital_tables(n_rows, seed=5)
+    data = {c: to_numpy(t.column(c)) for t in tables.values()
+            for c in t.names}
+    pipe = Pipeline([StandardScaler(_SVC_FEATS).fit(data)],
+                    RandomForest(n_trees=8, max_depth=6),
+                    PipelineMetadata(name="rf", task="classification"))
+    pipe.fit({k: data[k] for k in _SVC_FEATS},
+             (data["length_of_stay"] > 7.0).astype(np.int32))
+    store = ModelStore()
+    for name, t in tables.items():
+        store.register_table(name, t)
+    store.register_model("rf", pipe)
+    return store
+
+
+def _svc_script(svc, store):
+    pi = store.get_table("patient_info")
+
+    def rows(lo, hi):
+        return type(pi)({k: v[lo:hi] for k, v in pi.columns.items()},
+                        pi.valid[lo:hi], pi.schema)
+
+    outs = [svc.run(_SVC_SQL), svc.run(_SVC_SQL)]
+    tickets = [svc.submit(_SVC_SQL, {"patient_info": rows(lo, hi)})
+               for lo, hi in ((0, 100), (100, 1100), (5, 6))]
+    svc.flush()
+    outs += [t.result(timeout=60) for t in tickets]
+    outs.append(svc.run("SELECT pid, PREDICT_PROBA(MODEL='rf') AS p "
+                        "FROM patient_info JOIN blood_tests ON pid"))
+    return outs
+
+
+@pytest.mark.cuda
+def test_prediction_service_on_the_card_goes_through_tree_gemm(cuda_device):
+    """``PredictionService(ModelStore())`` serves on the card; under the
+    ``"cuda"`` strategy every execution launches the tree GEMM kernel once
+    (no chunking, no result splice), and the answers equal traversal's
+    bitwise."""
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.serve import PredictionService
+    store = _card_store()
+    assert store.device.type == "cuda"
+    kernel = PredictionService(store, enable_result_cache=False,
+                               optimizer_config=OptimizerConfig(
+                                   tree_strategy="cuda"))
+    trav = PredictionService(store, optimizer_config=OptimizerConfig(
+        tree_strategy="traversal"))
+    before = tg_ops.launches
+    got = _svc_script(kernel, store)
+    launched = tg_ops.launches - before
+    want = _svc_script(trav, store)
+    assert launched == kernel.stats.batch_executions > 0
+    for g, w in zip(got, want):
+        assert g.valid.is_cuda
+        assert torch.equal(g.valid, w.valid)
+        for k in w.columns:
+            assert torch.equal(g.columns[k], w.columns[k]), k
+    assert kernel.stats.coalesced_requests == 2
+    kernel.close()
+    trav.close()
+
+
+@pytest.mark.cuda
+def test_auto_calibrates_on_the_models_own_forest(cuda_device):
+    """On the card ``"auto"`` times the strategies on the model being
+    planned (cached once per model content in the store), so its
+    prediction at the calibration's own size is the measured line."""
+    from repro_torch.core import CrossOptimizer, parse_query
+    from repro_torch.core.cost_model import (_CAL_SIZES,
+                                             calibrated_tree_costs,
+                                             tree_strategy_costs)
+    from repro_torch.core.model_store import content_fingerprint
+    store = _card_store()
+    # no predicate: model pruning would plan (and calibrate) a pruned forest
+    plan, report = CrossOptimizer(store).optimize(parse_query(
+        "SELECT pid, PREDICT(MODEL='rf') AS s FROM patient_info", store))
+    model = store.get_model("rf").model
+    key = ("tree_strategy", "cuda", content_fingerprint(model))
+    cal = store.get_calibration(key)
+    assert cal is not None and cal.cuda_flop is not None
+    assert calibrated_tree_costs(catalog=store, model=model) is cal
+    costs = tree_strategy_costs(model, _CAL_SIZES["cuda"][1], 4, cal)
+    assert all(0 < v < 10.0 for v in costs.values())
+    assert any(r == "tree_strategy" for r, _ in report.entries)

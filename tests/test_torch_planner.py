@@ -222,3 +222,29 @@ def test_cuda_strategy_costs_inf_off_the_card(stores):
     costs = tree_strategy_costs(model, 1e6, 7, cal)
     assert costs["cuda"] == float("inf")
     assert 0 < costs["traversal"] < float("inf")
+
+
+def test_slot_estimate_counts_masked_rows(stores):
+    """A filter masks rows without dropping slots: the slot estimate (the
+    card's strategy pricing) keeps the scan's capacity where the live-row
+    estimate applies the predicate's selectivity."""
+    from repro_torch.core.cost_model import estimate_rows, estimate_slots
+    _, tstore = stores
+    plan = tcore.parse_query("SELECT pid, PREDICT(MODEL='los') AS los FROM "
+                             "patient_info JOIN blood_tests ON pid "
+                             "WHERE pregnant = 1", tstore)
+    rows, slots = estimate_rows(plan, tstore), estimate_slots(plan, tstore)
+    assert slots[plan.output] == 4000.0
+    assert rows[plan.output] < 4000.0
+
+
+def test_cpu_calibration_stays_on_the_stand_in_forest(stores):
+    """Only the card calibrates per model: on the CPU a model argument
+    changes nothing, so every CPU choice keeps its one calibration."""
+    from repro_torch.core.cost_model import calibrated_tree_costs
+    _, tstore = stores
+    model = tstore.get_model("los").model
+    cal = calibrated_tree_costs(catalog=tstore)
+    assert calibrated_tree_costs(catalog=tstore, model=model) is cal
+    assert [k for k in tstore._calibrations if k[0] == "tree_strategy"] == \
+        [("tree_strategy", "cpu")]

@@ -1,0 +1,496 @@
+"""End-to-end request tracing + unified metrics registry, on the port.
+The cases of ``tests/test_telemetry.py`` that need no sharded tier run on
+the port's service (pipelines fitted by the JAX package, carried across);
+a differential script holds the port's traces (span names per request)
+and metrics surface (the same ``repro_`` names and counter values) to
+the JAX package's.
+
+Four layers of guarantees:
+
+1. **Span mechanics are exact** (ManualClock, no threads): durations,
+   nesting, worker ``add_span`` tracks, events, and the Chrome-trace
+   export shape are pinned to deterministic clock readings.
+2. **MetricsRegistry semantics**: counter/gauge/histogram keying by
+   ``(name, labels)``, pull-time collectors sampled at read time, and
+   Prometheus text rendering (TYPE lines, cumulative ``le`` buckets).
+3. **Trace completeness per serving path**: cold compile, warm hit,
+   coalesced groups and result-cache splice each leave their signature
+   spans in the request's trace — the observability contract the
+   EXPLAIN/trace tooling reads.  (The sharded-morsel and shuffle-exchange
+   cases belong to the partition-parallel tier, not in the port yet.)
+4. **Off is free**: ``telemetry=False`` yields the shared NULL_TRACE
+   (zero spans retained, ``ticket.trace()`` is None) and zero hot-path
+   registry writes, while pull-time collectors keep working.
+
+Plus the operator-level EXPLAIN ANALYZE contract: on an external-model
+join query (known per-operator latency floor) the per-operator
+measured times must sum to within 20% of the measured end-to-end wall
+time.
+"""
+
+import json
+
+import numpy as np
+import pytest
+
+from repro_torch.core import ExecutionConfig, ModelStore, OptimizerConfig
+from repro_torch.core.ir import Plan
+from repro_torch.data import hospital_tables
+from repro.ml import (DecisionTree, LogisticRegression, Pipeline,
+                      PipelineMetadata, StandardScaler)
+from repro_torch.ml.convert import pipeline_from_state, pipeline_state
+from repro_torch.relational.table import Table
+from repro_torch.serve import (NULL_TRACE, AdmissionConfig, ManualClock,
+                         MetricsRegistry, PredictionService, Trace,
+                         chrome_trace)
+
+
+def _carry(pipe):
+    """A pipeline fitted by the JAX package, carried into the port as
+    numpy state (the two packages' fits are not bitwise equal)."""
+    return pipeline_from_state(pipeline_state(pipe))
+
+
+pytestmark = pytest.mark.tier1
+
+FEATS = ["age", "gender", "pregnant", "rcount"]
+SQL = "SELECT pid, age FROM patient_info WHERE age > 30"
+SQL_A = "SELECT pid, PREDICT(MODEL='m') AS score FROM patient_info"
+SQL_B = "SELECT pid, age, PREDICT(MODEL='m') AS score FROM patient_info"
+
+
+def _jax_fit(store):
+    pi = store.get_table("patient_info")
+    data = {c: np.asarray(pi.column(c)) for c in pi.names}
+    sc = StandardScaler(FEATS).fit(data)
+    # depth 6: > inline_max_nodes, so the predict subtree stays cacheable
+    pipe = Pipeline([sc], DecisionTree(task="regression", max_depth=6),
+                    PipelineMetadata(name="m", task="regression"))
+    pipe.fit({k: data[k] for k in FEATS}, data["length_of_stay"])
+    return pipe
+
+
+def _make_store(n_rows=300, seed=7):
+    store = ModelStore(device="cpu")
+    for n, t in hospital_tables(n_rows, seed=seed).items():
+        store.register_table(n, t)
+    store.register_model("m", _carry(_jax_fit(store)))
+    return store
+
+
+@pytest.fixture(scope="module")
+def store():
+    return _make_store()
+
+
+def _sub(full: Table, lo: int, n: int) -> Table:
+    """Rows ``[lo, lo + n)`` as a table of ``full``'s own package."""
+    return type(full)({k: v[lo:lo + n] for k, v in full.columns.items()},
+                      full.valid[lo:lo + n], full.schema)
+
+
+# ---------------------------------------------------------------------------
+# 1. Span mechanics (ManualClock — exact durations)
+# ---------------------------------------------------------------------------
+
+def test_span_durations_exact_on_manual_clock():
+    clock = ManualClock()
+    tr = Trace(clock, trace_id=7, name="q")
+    with tr.span("parse"):
+        clock.advance(0.25)
+    with tr.span("execute", rows=10) as ex:
+        clock.advance(1.5)
+        with tr.span("inner"):
+            clock.advance(0.5)
+    clock.advance(0.125)
+    tr.finish()
+    tr.finish()                             # idempotent: first stamp wins
+
+    parse, execute = tr.roots
+    assert parse.duration == 0.25
+    assert execute is ex and execute.duration == 2.0
+    assert execute.attrs == {"rows": 10}
+    (inner,) = execute.children
+    assert inner.duration == 0.5
+    assert tr.total_s == 2.375
+    assert tr.span_names() == ["parse", "execute", "inner"]
+    assert tr.find("inner").duration == 0.5
+    assert "execute 2000.000ms" in tr.pretty()
+
+
+def test_worker_add_span_and_events():
+    clock = ManualClock()
+    tr = Trace(clock)
+    tr.event("cache", result="hit")
+    with tr.span("execute"):
+        # overlapping worker spans, recorded out-of-band with device tids
+        tr.add_span("shard_wave", 0.0, 0.5, tid=1, device=0)
+        tr.add_span("shard_wave", 0.0, 0.75, tid=2, device=1)
+        clock.advance(0.75)
+    ev = tr.find("cache")
+    assert ev.duration == 0.0 and ev.attrs == {"result": "hit"}
+    waves = [s for s in tr.spans() if s.name == "shard_wave"]
+    assert [w.tid for w in waves] == [1, 2]
+    # workers parent under the phase span that was open when they recorded
+    assert all(w in tr.find("execute").children for w in waves)
+
+
+def test_chrome_trace_export_shape(tmp_path):
+    clock = ManualClock()
+    tr = Trace(clock, trace_id=3, name="q1")
+    with tr.span("execute", rows=4):
+        clock.advance(0.5)
+    tr.finish()
+    path = tmp_path / "trace.json"
+    doc = chrome_trace([tr], path=str(path))
+    assert doc == json.loads(path.read_text())
+    meta, span = doc["traceEvents"]
+    assert meta["ph"] == "M" and meta["args"]["name"] == "q1 #3"
+    assert span["ph"] == "X" and span["name"] == "execute"
+    assert span["dur"] == 0.5e6 and span["args"] == {"rows": 4}
+
+
+def test_null_trace_is_inert():
+    with NULL_TRACE.span("anything", x=1) as s:
+        assert s is None
+    assert NULL_TRACE.event("e") is None
+    assert NULL_TRACE.add_span("w", 0.0, 1.0) is None
+    assert not NULL_TRACE.enabled
+    assert NULL_TRACE.span_names() == []
+    assert NULL_TRACE.to_chrome_events() == []
+
+
+# ---------------------------------------------------------------------------
+# 2. MetricsRegistry semantics
+# ---------------------------------------------------------------------------
+
+def test_registry_counters_gauges_labels():
+    reg = MetricsRegistry()
+    reg.inc("req_total")
+    reg.inc("req_total", 2.0)
+    reg.inc("req_total", labels={"tenant": "a"})
+    reg.set_gauge("depth", 4)
+    snap = reg.snapshot()
+    assert snap["counters"]["req_total"] == 3.0
+    assert snap["counters"]["req_total{tenant=a}"] == 1.0
+    assert snap["gauges"]["depth"] == 4.0
+    assert reg.writes == 4
+
+
+def test_registry_histogram_render_cumulative():
+    reg = MetricsRegistry()
+    for v in (0.3, 0.4, 99.0):
+        reg.observe("lat_seconds", v, buckets=(0.5, 1.0))
+    text = reg.render()
+    assert "# TYPE lat_seconds histogram" in text
+    assert 'lat_seconds_bucket{le="0.5"} 2' in text
+    assert 'lat_seconds_bucket{le="1"} 2' in text
+    assert 'lat_seconds_bucket{le="+Inf"} 3' in text
+    assert "lat_seconds_count 3" in text
+    assert "lat_seconds_sum 99.7" in text
+
+
+def test_registry_collectors_sampled_at_read_time():
+    reg = MetricsRegistry()
+    state = {"n": 1}
+    unsub = reg.add_collector(
+        lambda: [("live_total", "counter", state["n"], None),
+                 ("live_depth", "gauge", 2.0, {"q": "x"})])
+    assert reg.snapshot()["counters"]["live_total"] == 1.0
+    state["n"] = 5
+    snap = reg.snapshot()
+    assert snap["counters"]["live_total"] == 5.0     # re-sampled, not cached
+    assert snap["gauges"]["live_depth{q=x}"] == 2.0
+    assert reg.writes == 0                           # collection is a read
+    unsub()
+    assert "live_total" not in reg.snapshot()["counters"]
+
+
+# ---------------------------------------------------------------------------
+# 3. Trace completeness per serving path
+# ---------------------------------------------------------------------------
+
+def test_queue_wait_span_is_exact_on_manual_clock(store):
+    clock = ManualClock()
+    svc = PredictionService(store, clock=clock, admission=AdmissionConfig(
+        latency_budget_s=1.0, background=False))
+    ticket = svc.submit(SQL)
+    clock.advance(1.1)
+    assert svc.admission_tick() == 1
+    ticket.result(timeout=0)
+    tr = ticket.trace()
+    assert tr is not None and tr.finished is not None
+    qw = tr.find("queue_wait")
+    assert qw.duration == pytest.approx(1.1)
+    assert qw.attrs["reason"] == "deadline"
+    assert svc.traces()[-1] is tr
+    svc.close()
+
+
+def test_cold_then_warm_trace_spans(store):
+    svc = PredictionService(store)
+    svc.run(SQL)
+    svc.run(SQL)
+    cold, warm = svc.traces()
+    assert cold.name == SQL
+    for name in ("parse", "queue_wait", "optimize", "codegen", "execute"):
+        assert cold.find(name) is not None, name
+    assert cold.find("executable_cache").attrs["result"] == "miss"
+    warm_names = warm.span_names()
+    assert warm.find("executable_cache").attrs["result"] == "hit"
+    assert "optimize" not in warm_names and "codegen" not in warm_names
+    assert warm.find("execute") is not None
+    svc.close()
+
+
+def test_coalesced_member_gets_event_head_gets_execute(store):
+    clock = ManualClock()
+    svc = PredictionService(store, clock=clock, admission=AdmissionConfig(
+        latency_budget_s=1.0, background=False))
+    t1 = svc.submit(SQL)
+    t2 = svc.submit(SQL)
+    clock.advance(1.5)
+    assert svc.admission_tick() == 2
+    head, rider = t1.trace(), t2.trace()
+    assert head.find("execute").attrs["coalesced"] == 1
+    assert rider.find("coalesced").attrs["group"] == 2
+    assert rider.find("execute") is None
+    assert len(svc.traces()) == 2
+    svc.close()
+
+
+def test_splice_trace_visible_in_second_query(store):
+    svc = PredictionService(store)
+    svc.run(SQL_A)
+    svc.run(SQL_B)
+    assert svc.stats.spliced_executions == 1
+    first, second = svc.traces()
+    assert first.find("result_cache_splice") is None
+    splice = second.find("result_cache_splice")
+    assert splice is not None and splice.attrs["hit"] is True
+    assert "patient_info" in splice.attrs["subtree"]
+    svc.close()
+
+
+def _exchange_store(n_pids=48, per_pid=4, seed=3):
+    """Fact/dim pair partitioned on *different* keys, so the join can only
+    shard through the hash-repartition exchange (test_exchange idiom)."""
+    rng = np.random.RandomState(seed)
+    n_rows = n_pids * per_pid
+    visits = Table.from_pydict({
+        "oid": np.arange(n_rows, dtype=np.int64),
+        "pid": rng.permutation(np.repeat(
+            np.arange(n_pids, dtype=np.int32), per_pid)),
+        "amount": rng.uniform(0.0, 9.0, n_rows).astype(np.float32)})
+    patients = Table.from_pydict({
+        "pid": np.arange(n_pids, dtype=np.int32),
+        "age": rng.uniform(0.0, 99.0, n_pids).astype(np.float32)})
+    store = ModelStore(device="cpu")
+    store.register_table("visits", visits, partition_by="oid",
+                         partition_bounds=[n_rows // 2])
+    store.register_table("patients", patients, partition_by="pid",
+                         partition_bounds=[n_pids // 2])
+    return store
+
+
+def _join_plan():
+    plan = Plan()
+    v = plan.emit("scan", "RA", [], "table", table="visits")
+    p = plan.emit("scan", "RA", [], "table", table="patients")
+    plan.output = plan.emit("join", "RA", [v, p], "table", on="pid",
+                            how="inner")
+    return plan
+
+
+def test_export_traces_writes_chrome_json(store, tmp_path):
+    svc = PredictionService(store)
+    svc.run(SQL)
+    path = tmp_path / "traces.json"
+    doc = svc.export_traces(str(path))
+    assert path.exists()
+    names = {e["name"] for e in doc["traceEvents"]}
+    assert "execute" in names and "process_name" in names
+    svc.close()
+
+
+def test_trace_ring_capacity_bounds_retention(store):
+    svc = PredictionService(store, trace_capacity=2)
+    for _ in range(5):
+        svc.run(SQL)
+    assert len(svc.traces()) == 2
+    assert len(svc.traces(1)) == 1
+    svc.close()
+
+
+# ---------------------------------------------------------------------------
+# 4. telemetry=False is free
+# ---------------------------------------------------------------------------
+
+def test_telemetry_off_zero_spans_zero_writes(store):
+    svc = PredictionService(store, telemetry=False)
+    ticket = svc.submit(SQL)
+    svc.flush()
+    ticket.result(timeout=5)
+    svc.run(SQL)
+    assert svc.traces() == []
+    assert ticket.trace() is None
+    assert svc.metrics.writes == 0                # no hot-path mutations
+    # pull-time collectors still work: stats stay the source of truth
+    snap = svc.metrics_snapshot()
+    assert snap["counters"]["repro_submitted_total"] == 2.0
+    assert snap["counters"]["repro_cache_hits_total"] == 1.0
+    svc.close()
+
+
+def test_telemetry_on_writes_and_prometheus_text(store):
+    svc = PredictionService(store)
+    svc.run(SQL)
+    assert svc.metrics.writes >= 3      # queue wait + exec + compile observes
+    text = svc.metrics_text()
+    assert "# TYPE repro_queue_wait_seconds histogram" in text
+    assert "repro_exec_seconds_count 1" in text
+    assert "repro_compile_seconds_count 1" in text
+    assert "repro_plans_compiled_total 1" in text
+    assert "repro_batch_executions_total 1" in text
+    assert "repro_admission_queue_depth_high_water 1" in text
+    svc.close()
+
+
+# ---------------------------------------------------------------------------
+# 5. EXPLAIN ANALYZE
+# ---------------------------------------------------------------------------
+
+EXTERNAL_LATENCY_S = 20e-3
+
+
+def _explain_store(n_pids=64, per_pid=4, seed=11):
+    """Shuffle-join-shaped store with an *external*-flavor model: every
+    operator above the scans costs real wall time (the external hop has a
+    simulated 20ms floor), so per-operator times must account for the
+    end-to-end measurement."""
+    rng = np.random.RandomState(seed)
+    store = _exchange_store(n_pids=n_pids, per_pid=per_pid, seed=seed)
+    visits = store.get_table("visits")
+    patients = store.get_table("patients")
+    age = np.asarray(patients.column("age"))
+    feats = ["age", "amount"]
+    data = {"age": age[np.asarray(visits.column("pid"))],
+            "amount": np.asarray(visits.column("amount"))}
+    y = (data["age"] * 0.02 + data["amount"] * 0.1
+         + rng.randn(len(data["age"])) > 1.0).astype(np.int32)
+    sc = StandardScaler(feats).fit(data)
+    pipe = Pipeline([sc], LogisticRegression(steps=25),
+                    PipelineMetadata(name="risk", task="classification",
+                                     flavor="external"))
+    pipe.fit(data, y)
+    pipe = _carry(pipe)
+    store.register_model("risk", pipe)
+    return store, pipe
+
+
+def _predict_join_plan(pipe):
+    plan = _join_plan()
+    j = plan.output
+    f = plan.emit("featurize", "MLD", [j], "matrix", pipeline_name="risk",
+                  featurizers=pipe.featurizers,
+                  input_columns=pipe.input_columns())
+    m = plan.emit("predict_model", "MLD", [f], "matrix", model=pipe.model,
+                  model_name="risk", proba=True, task="classification",
+                  flavor="external")
+    plan.output = plan.emit("attach_column", "RA", [j, m], "table", name="p")
+    return plan
+
+
+def test_explain_analyze_operator_times_account_for_e2e():
+    store, pipe = _explain_store()
+    svc = PredictionService(
+        store,
+        optimizer_config=OptimizerConfig(enable_model_inlining=False,
+                                         enable_nn_translation=False),
+        execution_config=ExecutionConfig(
+            external_latency_s=EXTERNAL_LATENCY_S))
+    ex = svc.explain(_predict_join_plan(pipe), analyze=True)
+    assert ex.analyze and ex.total_s > 0
+    op_names = [n.op for _, n in ex.operators()]
+    assert "join" in op_names and "predict_model" in op_names
+    measured = ex.measured_s
+    # the acceptance bound: per-operator sum within 20% of end-to-end
+    assert measured == pytest.approx(ex.total_s, rel=0.2)
+    # the external hop's 20ms floor is visible on its operator
+    pm = [nid for nid, n in ex.plan.nodes.items()
+          if n.op == "predict_model"]
+    assert pm and ex.samples[pm[0]][0] >= EXTERNAL_LATENCY_S * 0.5
+    text = ex.pretty()
+    assert "predict_model" in text and "actual time=" in text
+    assert "end-to-end" in text
+    svc.close()
+
+
+def test_explain_without_analyze_renders_plan_only(store):
+    svc = PredictionService(store)
+    ex = svc.explain(SQL)
+    assert not ex.analyze and ex.samples == {}
+    text = ex.pretty()
+    assert "scan [patient_info]" in text
+    assert "actual time=" not in text
+    svc.close()
+
+
+# ---------------------------------------------------------------------------
+# Differential: traces and the metrics surface against the JAX package
+# ---------------------------------------------------------------------------
+
+def _telemetry_script(svc, clock, full):
+    svc.run(SQL)                                   # cold
+    svc.run(SQL)                                   # warm
+    svc.run(SQL_A)                                 # capture
+    svc.run(SQL_B)                                 # splice
+    tickets = [svc.submit(SQL_A, {"patient_info": _sub(full, lo, n)})
+               for lo, n in ((0, 10), (10, 30), (50, 7))]
+    clock.advance(2.0)
+    svc.admission_tick()
+    for t in tickets:
+        t.result(timeout=0)
+    svc.session(tenant="acme").sql(SQL)
+    bad = svc.submit("SELECT pid FROM nowhere")
+    svc.flush()
+    return [tr.span_names() for tr in svc.traces()], bad.trace() \
+        is not None, svc.metrics_snapshot()
+
+
+def test_traces_and_metrics_match_jax(store):
+    from repro.core import ModelStore as JModelStore
+    from repro.data import hospital_tables as jhospital
+    from repro.serve import AdmissionConfig as JAdmissionConfig
+    from repro.serve import ManualClock as JManualClock
+    from repro.serve import PredictionService as JService
+    js = JModelStore()
+    for n, t in jhospital(300, seed=7).items():
+        js.register_table(n, t)
+    js.register_model("m", _jax_fit(js))
+    assert js.model_digest("m") == store.model_digest("m")
+    cfg = dict(latency_budget_s=1.0, background=False)
+    jclock, tclock = JManualClock(), ManualClock()
+    jsvc = JService(js, clock=jclock, admission=JAdmissionConfig(**cfg))
+    tsvc = PredictionService(store, clock=tclock,
+                             admission=AdmissionConfig(**cfg))
+    jspans, jbad, jsnap = _telemetry_script(
+        jsvc, jclock, js.get_table("patient_info"))
+    tspans, tbad, tsnap = _telemetry_script(
+        tsvc, tclock, store.get_table("patient_info"))
+    assert tspans == jspans and tbad and jbad
+    assert any("result_cache_splice" in names for names in tspans)
+    assert tsnap["counters"] == jsnap["counters"]
+    assert tsnap["counters"]["repro_jit_traces_total"] > 0
+    # the executable tier's bytes weigh plan constants, which the port
+    # holds differently (its trees also keep their device tensors)
+    for snap in (tsnap, jsnap):
+        assert snap["gauges"].pop("repro_exec_cache_bytes") > 0
+    assert tsnap["gauges"] == jsnap["gauges"]
+    assert {k: h["count"] for k, h in tsnap["histograms"].items()} == \
+        {k: h["count"] for k, h in jsnap["histograms"].items()}
+    lines = {ln.split(" ")[0] for ln in tsvc.metrics_text().splitlines()}
+    assert lines == {ln.split(" ")[0]
+                     for ln in jsvc.metrics_text().splitlines()}
+    jsvc.close()
+    tsvc.close()
