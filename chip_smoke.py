@@ -71,6 +71,34 @@ Phases (each prints JSON lines; any failure exits non-zero):
                resolved within 60 s and equal to its request served alone,
                then ``close()``; and ``explain(analyze=True)`` of query (a),
                its per-operator times printed.
+6b. sharded — the partition-parallel tier: a second ``ModelStore`` on the
+               card with phase 4's tables and forest, ``patient_info`` and
+               ``blood_tests`` range-partitioned on pid at the same 16
+               bounds (16 morsels of 65,536 rows at the default
+               ``shard_morsel_rows``) and ``blood_x``, a copy of
+               ``blood_tests`` on bounds half a partition off, served by
+               ``PredictionService(store, execution_config=
+               ExecutionConfig(sharded=True))`` under the default optimizer
+               config: query (a) as a partition-wise join, (c) as a
+               two-phase aggregation, (a) over ``blood_x`` through the hash
+               exchange (with ``shard_exchange_cost_gate=False``, which one
+               card needs to shuffle at all), and (a) with ``pid <
+               250000``, which the zone maps prune to 4 of 16 partitions.
+               Each cold, then warm twice, beside the whole-table service
+               on the same store: every answer equal to the whole-table
+               answer on the valid rows (and on the validity mask where no
+               partition was pruned); (c)'s AVG within 1e-4 relative, its
+               keys and validity exact (the partial sums fold in partition
+               order, so the float32 sum is associated differently);
+               tree_gemm launches equal to the morsels or exchange buckets
+               run (their ``shard_wave`` / ``exchange_bucket`` spans: 16,
+               16, 16 and 4); the shard and exchange counters rising by
+               the reference's semantics; the second warm round compiling
+               no plan, building no shard executable and tracing no
+               signature; the gated service sending the exchange query
+               whole-table.  Prints cold and warm ms, morsels, waves,
+               bucket rows, exchange bytes, the exchange's planning ms and
+               the span times.
 7. lm, lm_rwkv, lm_hymba — the LM paths, each a model at full width and
                depth (random bfloat16 weights from a seeded generator on
                the card) served by ``InferenceEngine`` with 4 slots, greedy,
@@ -96,7 +124,8 @@ Phases (each prints JSON lines; any failure exits non-zero):
                and their greedy tokens agree where the CPU margin is clear.
 
 Then one ``{"kernels": [...]}`` line (tree_gemm's launches split by phase
-under ``launches_by_phase``), and last ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of the JAX package.
+under ``launches_by_phase``: main, service, sharded), and last ``{"ok":
+true, "device": {...}}``.  The script imports nothing of JAX or of the JAX package.
 
 ``python3 chip_smoke.py --decode-cold`` runs phase 1 and only
 decode_attention's cold-L2 timings; a copy of this file in an unpacked
@@ -822,6 +851,225 @@ def phase_service(store, tables, main_outs, main_infos):
           "seconds": time.perf_counter() - t0})
     return launched
 
+
+# -- phase 6b: the partition-parallel tier -----------------------------------
+
+SHARD_PARTITIONS = 16              # 1M rows -> 16 partitions of 62,500
+SHARD_MISALIGN = 31_250            # blood_x's bounds: half a partition off
+SHARD_PRUNE_PID = 250_000          # query (p) keeps partitions 0-3
+SHARD_AVG_RTOL = 1e-4              # (c)'s AVG: partial sums reassociate
+# query -> (SQL, sharded mode, expected morsels or buckets a run)
+SHARD_QUERIES = {
+    "a": (QUERIES["a"], "partition_wise", SHARD_PARTITIONS),
+    "c": (QUERIES["c"], "two_phase", SHARD_PARTITIONS),
+    "x": (QUERIES["a"].replace("blood_tests", "blood_x"), "exchange",
+          SHARD_PARTITIONS),
+    "p": (QUERIES["a"] + f" WHERE pid < {SHARD_PRUNE_PID}",
+          "partition_wise", SHARD_PARTITIONS // 4),
+}
+
+
+def shard_units(trace) -> list:
+    """The morsels and exchange buckets one served query ran: its
+    ``shard_wave`` / ``exchange_bucket`` spans (one a unit, timed on the
+    device's worker)."""
+    return [s for s in trace.spans()
+            if s.name in ("shard_wave", "exchange_bucket")]
+
+
+def same_rows(a, b, mask: bool = True) -> bool:
+    """Equal values on the valid rows, in order (a masked row's other
+    columns are not part of the answer), and — with ``mask`` — equal
+    validity masks.  A pruned sharded serve places only the surviving
+    partitions' rows, so its mask is shorter: compare it without."""
+    import numpy as np
+    ma, mb = a["valid"], b["valid"]
+    if mask and not np.array_equal(ma, mb):
+        return False
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype
+        and np.array_equal(a[k][ma], b[k][mb], equal_nan=True) for k in a)
+
+
+def same_two_phase(a, b) -> tuple:
+    """(c): group keys, validity and dtypes equal; the AVG column within
+    ``SHARD_AVG_RTOL`` (the per-morsel partial sums fold in partition
+    order, so the float32 sum is associated differently from one
+    whole-table pass).  Returns (ok, bitwise, max relative difference)."""
+    import numpy as np
+    m = a["valid"]
+    ok = (a.keys() == b.keys() and np.array_equal(m, b["valid"])
+          and all(a[k].dtype == b[k].dtype for k in a)
+          and np.array_equal(a["gender"][m], b["gender"][m]))
+    rel = float(np.max(np.abs(a["p"][m] - b["p"][m])
+                       / np.maximum(np.abs(b["p"][m]), 1e-30),
+                       initial=0.0))
+    return ok and rel <= SHARD_AVG_RTOL, same_rows(a, b), rel
+
+
+def phase_sharded(tables, pipe):
+    """The partition-parallel tier: a second store on the card with
+    ``patient_info`` and ``blood_tests`` range-partitioned on pid at the
+    same 16 bounds (and ``blood_x``, a copy of ``blood_tests`` on bounds
+    half a partition off), served by ``PredictionService(store,
+    execution_config=ExecutionConfig(sharded=True))`` under the default
+    optimizer config: (a) partition-wise, (c) two-phase, (a) over
+    ``blood_x`` through the hash exchange (cost gate off, the tests'
+    idiom), and (a) pruned by zone maps to a quarter of the partitions.
+    Each cold, then warm twice, beside the whole-table service on the same
+    store.  Returns the tree_gemm launches it made."""
+    import statistics as stats_
+
+    import torch
+
+    from repro_torch.core import ExecutionConfig, ModelStore, codegen
+    from repro_torch.kernels.tree_gemm import ops as tg_ops
+    from repro_torch.serve import PredictionService, plan_morsels
+    launches0 = tg_ops.launches
+    t0 = time.perf_counter()
+    store = ModelStore(device="cuda")
+    n_rows = tables["patient_info"].capacity
+    bounds = [n_rows * i // SHARD_PARTITIONS
+              for i in range(1, SHARD_PARTITIONS)]
+    for name in ("patient_info", "blood_tests"):
+        store.register_table(name, tables[name], partition_by="pid",
+                             partition_bounds=bounds)
+    store.register_table("blood_x", tables["blood_tests"],
+                         partition_by="pid",
+                         partition_bounds=[b + SHARD_MISALIGN
+                                           for b in bounds])
+    store.register_model("rf", pipe)
+    parts = store.get_partitioned("patient_info").partitions
+    cfg = ExecutionConfig(sharded=True)
+    placement = plan_morsels([(p.index, p.n_rows) for p in parts], 1,
+                             cfg.shard_min_bucket_rows,
+                             cfg.shard_morsel_rows)
+    emit({"phase": "sharded", "step": "register", "rows": n_rows,
+          "partitions": len(parts),
+          "partition_rows": sorted({p.n_rows for p in parts}),
+          "morsels": placement.n_morsels, "waves": placement.n_waves,
+          "bucket_rows": placement.bucket_rows,
+          "devices": torch.cuda.device_count(),
+          "seconds": time.perf_counter() - t0})
+
+    def stats(svc):
+        return dict(vars(svc.stats))
+
+    whole = PredictionService(store)
+    svc = PredictionService(store, execution_config=cfg)
+    xsvc = PredictionService(store, execution_config=ExecutionConfig(
+        sharded=True, shard_exchange_cost_gate=False))
+    try:
+        ms = {q: {"whole": [], "sharded": []} for q in SHARD_QUERIES}
+        units = {}
+        want = {}
+        for r in range(3):
+            if r == 2:
+                c2 = codegen.compile_stats["plans_compiled"]
+                before2 = {id(s): (s.stats.shard_compiles,
+                                   s.stats.jit_traces) for s in (svc, xsvc)}
+            for q, (sql, mode, n_units) in SHARD_QUERIES.items():
+                ssvc = xsvc if mode == "exchange" else svc
+                # the whole-table answer first: it also pays the "auto"
+                # calibration of the model on this store, once
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = whole.sql(sql)            # served results are ready
+                ms[q]["whole"].append((time.perf_counter() - t) * 1e3)
+                want.setdefault(q, host(out))
+                s0, l0 = stats(ssvc), tg_ops.launches
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = ssvc.sql(sql)
+                ms[q]["sharded"].append((time.perf_counter() - t) * 1e3)
+                got = host(out)
+                launched = tg_ops.launches - l0
+                d = {k: v - s0[k] for k, v in stats(ssvc).items()}
+                trace = ssvc.traces(1)[0]
+                ran = shard_units(trace)
+                units[q] = (trace, ran)
+                if mode == "two_phase":
+                    ok, bitwise, rel = same_two_phase(got, want[q])
+                else:
+                    ok = same_rows(got, want[q], mask=q != "p")
+                    bitwise, rel = None, 0.0
+                if not ok:
+                    fail(f"sharded: query ({q}), round {r}, differs from "
+                         f"the whole-table service's answer (max relative "
+                         f"difference {rel})")
+                if launched != len(ran) or len(ran) != n_units:
+                    fail(f"sharded: query ({q}), round {r}: {launched} "
+                         f"tree_gemm launches, {len(ran)} morsels or "
+                         f"buckets run, expected {n_units}")
+                rise = {"sharded_executions": 1, "shard_join_executions": 1,
+                        "exchange_executions": int(mode == "exchange"),
+                        "shard_agg_combines": int(mode == "two_phase"),
+                        "shard_partial_aggs":
+                            n_units if mode == "two_phase" else 0,
+                        "partitions_pruned":
+                            SHARD_PARTITIONS - n_units
+                            if mode != "exchange" else 0}
+                wrong = {k: d[k] for k, v in rise.items() if d[k] != v}
+                if wrong:
+                    fail(f"sharded: query ({q}), round {r}: counters "
+                         f"{wrong}, expected {rise}")
+                if mode == "exchange" and d["exchange_bytes_moved"] <= 0:
+                    fail("sharded: the exchange moved no bytes")
+                if r == 0:
+                    emit({"phase": "sharded", "step": "first_serve",
+                          "query": q, "mode": mode, "bitwise": bitwise,
+                          "max_rel_diff": rel,
+                          "stats": {k: v for k, v in d.items() if v}})
+        compiles2 = codegen.compile_stats["plans_compiled"] - c2
+        built2 = sum(s.stats.shard_compiles - before2[id(s)][0]
+                     for s in (svc, xsvc))
+        traces2 = sum(s.stats.jit_traces - before2[id(s)][1]
+                      for s in (svc, xsvc))
+        for q, (sql, mode, n_units) in SHARD_QUERIES.items():
+            trace, ran = units[q]
+            build = trace.find("exchange_build")
+            span_ms = [s.duration * 1e3 for s in ran]
+            emit({"phase": "sharded", "step": "query", "query": q,
+                  "mode": mode, "sql": sql,
+                  "whole_cold_ms": ms[q]["whole"][0],
+                  "whole_warm_ms": ms[q]["whole"][1:],
+                  "sharded_cold_ms": ms[q]["sharded"][0],
+                  "sharded_warm_ms": ms[q]["sharded"][1:],
+                  "units": len(ran),
+                  "unit_rows": sorted({s.attrs["rows"] for s in ran}),
+                  "unit_ms": {"min": min(span_ms),
+                              "median": stats_.median(span_ms),
+                              "max": max(span_ms), "sum": sum(span_ms)},
+                  "exchange_build_ms": build.duration * 1e3
+                  if build is not None else None,
+                  "exchange_placement": {k: v for k, v in build.attrs.items()
+                                         if k != "on"}
+                  if build is not None else None})
+        emit({"phase": "sharded", "step": "second_warm_round",
+              "plans_compiled": compiles2, "shard_compiles": built2,
+              "jit_traces": traces2,
+              "exchange_bytes_moved": xsvc.stats.exchange_bytes_moved,
+              "shard_info": svc.shard_info(),
+              "exchange_shard_info": xsvc.shard_info()})
+        if compiles2 or built2 or traces2:
+            fail(f"sharded: the second warm round compiled {compiles2} "
+                 f"plans, built {built2} shard executables and traced "
+                 f"{traces2} signatures")
+        # with the cost gate on, one device never pays for the shuffle
+        f0 = svc.stats.exchange_fallbacks
+        if not same_rows(host(svc.sql(SHARD_QUERIES["x"][0])), want["x"]) \
+                or svc.stats.exchange_fallbacks != f0 + 1:
+            fail("sharded: the gated exchange did not fall back to the "
+                 "whole-table answer")
+    finally:
+        for s in (whole, svc, xsvc):
+            s.close()
+    del store
+    torch.cuda.empty_cache()
+    launched = tg_ops.launches - launches0
+    emit({"phase": "sharded", "step": "done", "tree_gemm_launches": launched,
+          "seconds": time.perf_counter() - t0})
+    return launched
 
 # -- phase 3, attention ------------------------------------------------------
 
@@ -1642,7 +1890,10 @@ def main() -> None:
     outs, launches, store, infos = phase_main(tables, pipe)
     phase_check(tables, pipe, outs)
     service_launches = phase_service(store, tables, outs, infos)
-    del tables, outs, store
+    del outs, store
+    torch.cuda.empty_cache()
+    sharded_launches = phase_sharded(tables, pipe)
+    del tables
     torch.cuda.empty_cache()
 
     lm_launches = {}
@@ -1660,9 +1911,10 @@ def main() -> None:
                                                        lm_launches)
     print(smi, flush=True)      # the card beside the numbers, again
     emit({"kernels": [
-        {**row, "launches": launches + service_launches,
+        {**row, "launches": launches + service_launches + sharded_launches,
          "launches_by_phase": {"main": launches,
-                               "service": service_launches}},
+                               "service": service_launches,
+                               "sharded": sharded_launches}},
         on_paths("flash_attention", flash_row),
         on_paths("decode_attention", decode_row),
         on_paths("rwkv6_scan", wkv_row),

@@ -41,26 +41,63 @@ __all__ = ["compile_plan", "execute", "resolve_params", "ExecutionConfig",
 
 
 class ExecutionConfig:
-    """Knobs for non-native runtimes and the tree-GEMM kernel.
+    """Knobs for non-native runtimes, the tree-GEMM kernel and
+    partition-parallel execution.
 
     ``use_cuda_tree_gemm`` forces every ``tree_gemm`` node through the
     hand-written CUDA kernel (``kernels/tree_gemm``) whatever strategy the
-    optimizer recorded — the benchmark override.  The partition-parallel
-    knobs of the JAX package's config arrive with the sharded executor.
+    optimizer recorded — the benchmark override.
+
+    Sharded execution (``serve/sharded.py``): ``sharded=True`` routes
+    row-local plans over *partitioned* catalog tables through the
+    partition executor — surviving partitions (post zone-map pruning) are
+    packed into bucket-shaped morsels and placed across ``shard_devices``
+    devices: 0 = every local device of the catalog's type (each card on a
+    CUDA catalog, the one CPU on a CPU catalog), a positive count the first
+    that many, or an explicit sequence of devices.  ``shard_morsel_rows``
+    caps morsel granularity (a huge table on few devices runs as multiple
+    same-shaped waves instead of one giant executable);
+    ``shard_min_bucket_rows`` floors the pow-2 morsel bucket.
+
+    Exchange execution (``serve/exchange.py``): ``shard_exchange=True``
+    lets equi-joins whose sides are *not* co-partitioned shard anyway via
+    a hash-repartition shuffle on the join key.
+    ``shard_exchange_cost_gate`` keeps the bytes-moved-vs-whole-table
+    cost check (``core.cost_model.exchange_beneficial``) in front of the
+    shuffle — small tables fall back to whole-table execution where the
+    per-bucket dispatch overhead would dominate; tests that must pin the
+    exchange path deterministically turn the gate off.
     """
 
     def __init__(self, container_latency_s: float = 0.05,
                  external_latency_s: float = 0.0,
-                 use_cuda_tree_gemm: bool = False):
+                 use_cuda_tree_gemm: bool = False,
+                 sharded: bool = False,
+                 shard_devices: Any = 0,
+                 shard_morsel_rows: int = 1 << 16,
+                 shard_min_bucket_rows: int = 64,
+                 shard_exchange: bool = True,
+                 shard_exchange_cost_gate: bool = True):
         self.container_latency_s = container_latency_s
         self.external_latency_s = external_latency_s
         self.use_cuda_tree_gemm = use_cuda_tree_gemm
+        self.sharded = sharded
+        self.shard_devices = shard_devices
+        self.shard_morsel_rows = shard_morsel_rows
+        self.shard_min_bucket_rows = shard_min_bucket_rows
+        self.shard_exchange = shard_exchange
+        self.shard_exchange_cost_gate = shard_exchange_cost_gate
 
     def cache_key(self) -> tuple:
         """Hashable identity for compiled-executable caching: two configs
         with equal knobs produce identical executables."""
+        devices = self.shard_devices
+        if isinstance(devices, (list, tuple)):
+            devices = tuple(str(d) for d in devices)
         return (self.container_latency_s, self.external_latency_s,
-                self.use_cuda_tree_gemm)
+                self.use_cuda_tree_gemm, self.sharded, devices,
+                self.shard_morsel_rows, self.shard_min_bucket_rows,
+                self.shard_exchange, self.shard_exchange_cost_gate)
 
 
 # Observability hooks: every compile_plan() call counts under
@@ -141,7 +178,8 @@ def _scores_to_output(scores: torch.Tensor, task: str, proba: bool
         col = scores[:, 0]
         if task == "classification":
             if proba:
-                return torch.sigmoid(col)
+                from ..ml.linear import rowwise_sigmoid
+                return rowwise_sigmoid(col)
             return (col > 0).to(torch.float32)
         return col
     if task == "classification":
@@ -442,10 +480,13 @@ def compile_plan(plan: Plan, catalog,
                 scale, offset = consts[nid]
                 env[nid] = ins[0] * scale + offset
             elif op == "matmul_bias":
+                # row by row: a row's bits never depend on its batch
+                from ..ml.linear import rowwise_matmul
                 w, b = consts[nid]
-                env[nid] = ins[0] @ w + b
+                env[nid] = rowwise_matmul(ins[0], w) + b
             elif op == "sigmoid":
-                env[nid] = torch.sigmoid(ins[0])
+                from ..ml.linear import rowwise_sigmoid
+                env[nid] = rowwise_sigmoid(ins[0])
             elif op == "relu":
                 env[nid] = torch.relu(ins[0])
             elif op == "softmax":

@@ -30,11 +30,12 @@ class MLP:
 
     @staticmethod
     def apply(params, x: torch.Tensor) -> torch.Tensor:
-        """Layers are ``h @ w + b`` with ReLU between; ``params`` hold
-        tensors on ``x``'s device."""
+        """Layers are ``h @ w + b`` (row by row, ``rowwise_matmul``) with
+        ReLU between; ``params`` hold tensors on ``x``'s device."""
+        from .linear import rowwise_matmul
         h = x
         for i, layer in enumerate(params):
-            h = h @ layer["w"] + layer["b"]
+            h = rowwise_matmul(h, layer["w"]) + layer["b"]
             if i < len(params) - 1:
                 h = torch.relu(h)
         return h

@@ -2,9 +2,10 @@
 the prediction-query service with its three-tier cache (plan-signature
 executable cache -> cross-query materialized result cache -> cost-aware
 eviction/invalidation) plus continuous-batching admission (latency-budget
-coalescing over shape-bucketed executables), multi-tenant sessions and
-telemetry.  The partition-parallel tier (sharded execution and the
-hash-repartition exchange) is not ported yet."""
+coalescing over shape-bucketed executables), multi-tenant sessions,
+telemetry, and the partition-parallel tier: the morsel scheduler and
+sharded executor, and the hash-repartition exchange that shards
+non-co-partitioned equi-joins."""
 
 from .admission import (AdmissionConfig, AdmissionLoop, AdmissionQueueFull,
                         Batcher, Clock, DeadlineUnmeetable, ManualClock,
@@ -12,20 +13,29 @@ from .admission import (AdmissionConfig, AdmissionLoop, AdmissionQueueFull,
 from .cache import CacheEntry, CostAwareCache, value_nbytes
 from .context import RequestContext, Session, TenantPolicy
 from .engine import InferenceEngine, Request, ServeConfig
-from .prediction_service import (CompiledPrediction, ExplainResult,
+from .exchange import (ExchangePlacement, choose_bucket_count, hash_buckets,
+                       plan_exchange)
+from .prediction_service import (AggStage, CompiledPrediction,
+                                 DistributedSpec, ExchangeSpec, ExplainResult,
                                  PredictionService, PredictionTicket,
                                  ServiceStats, SubplanRef, TenantStats)
 from .sampling import restrict_vocab, sample_token
+from .sharded import (Morsel, ShardedExecutor, ShardPlacement, plan_morsels,
+                      side_bucket_rows)
 from .telemetry import (NULL_TRACE, MetricsRegistry, Span, Trace,
                         chrome_trace)
 
 __all__ = ["InferenceEngine", "Request", "ServeConfig", "sample_token",
            "restrict_vocab",
            "PredictionService", "PredictionTicket", "CompiledPrediction",
-           "ServiceStats", "SubplanRef", "CostAwareCache",
+           "DistributedSpec", "AggStage", "ExchangeSpec", "ServiceStats",
+           "SubplanRef", "CostAwareCache",
            "CacheEntry", "value_nbytes", "AdmissionConfig", "AdmissionLoop",
            "AdmissionQueueFull", "Batcher", "Clock", "DeadlineUnmeetable",
-           "ManualClock", "ReadyGroup", "SystemClock",
+           "ManualClock", "ReadyGroup", "SystemClock", "Morsel",
+           "ShardedExecutor", "ShardPlacement", "plan_morsels",
+           "side_bucket_rows", "ExchangePlacement", "choose_bucket_count",
+           "hash_buckets", "plan_exchange",
            "RequestContext", "Session", "TenantPolicy", "TenantStats",
            "ExplainResult", "MetricsRegistry", "NULL_TRACE", "Span", "Trace",
            "chrome_trace"]

@@ -62,10 +62,12 @@ Execution tiers below the caches:
 - **morsel (chunked) execution** — large scans split into fixed-size row
   chunks with a tail-padding path (pad rows carry ``valid=False``), so a
   plan sees exactly one chunk shape regardless of table size.  Only
-  row-local single-scan plans chunk.  Plans the ``distributed_plan`` rule
-  marked (partition-wise joins, two-phase aggregations) execute
-  whole-table here: the partition-parallel tier is not part of this
-  package yet.
+  row-local single-scan plans chunk.  Under ``ExecutionConfig(
+  sharded=True)`` the partition-parallel tier additionally covers plans
+  the ``distributed_plan`` rule rewrote — partition-wise joins over
+  co-partitioned tables, hash-exchanged joins and two-phase (partial +
+  combine) aggregations — see ``_execute_distributed``; everything else
+  falls back to whole-table execution.
 - **micro-batch admission** — concurrent requests sharing a plan signature
   coalesce: row-local plans stack their input tables into one padded batch
   execution and split the results; requests over identical catalog tables
@@ -107,6 +109,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import threading
 import time
 import weakref
@@ -120,21 +123,24 @@ from ..core.codegen import (ExecutionConfig, _sync, add_compile_listener,
                             resolve_params)
 from ..core.ir import (Node, Plan, ROW_LOCAL_OPS, bucketed_signature,
                        is_deterministic_subtree, plan_params, plan_signature,
-                       subtree_nodes, subtree_signatures)
+                       sharded_signature, subtree_nodes, subtree_signatures)
 from ..core.optimizer import (CrossOptimizer, OptimizationReport,
                               OptimizerConfig, referenced_models)
 from ..core.sql_frontend import parse_query
+from ..relational.ops import combine_partials, merge_partial_states
 from ..relational.table import Schema, Table, to_numpy
 from .admission import (AdmissionConfig, AdmissionLoop, AdmissionQueueFull,
                         Batcher, Clock, DeadlineUnmeetable, ReadyGroup,
                         SystemClock)
 from .cache import CostAwareCache
 from .context import RequestContext, Session, TenantPolicy
+from .sharded import ShardedExecutor, _concat_outputs, side_bucket_rows
 from .telemetry import (MetricsRegistry, NULL_TRACE, Trace, chrome_trace,
                         next_trace_id)
 
 __all__ = ["PredictionService", "ServiceStats", "PredictionTicket",
-           "CompiledPrediction", "SubplanRef", "RequestContext", "Session",
+           "CompiledPrediction", "DistributedSpec", "AggStage",
+           "ExchangeSpec", "SubplanRef", "RequestContext", "Session",
            "TenantPolicy", "TenantStats", "ExplainResult"]
 
 
@@ -192,10 +198,8 @@ class ServiceStats:
     size_flushes: int = 0           # groups released by max_batch_requests
     drain_flushes: int = 0          # groups released by flush()/close()
     queue_rejections: int = 0       # submits refused by backpressure
-    # partition-parallel (sharded) tier and its exchange: not in this
-    # package yet, so these read 0; the fields stay so the two packages'
-    # stats compare field by field
-    sharded_executions: int = 0     # logical executions routed to the mesh
+    # partition-parallel (sharded) tier
+    sharded_executions: int = 0     # logical executions routed to devices
     shard_compiles: int = 0         # sharded twin executables built
     shard_hits: int = 0             # sharded executions reusing a twin
     shard_waves: int = 0            # morsel waves dispatched
@@ -263,6 +267,66 @@ class SubplanRef:
         root = self.subtree_plan.nodes[self.subtree_plan.output]
         return f"{root.op}[{self.n_nodes} nodes] over {self.scan_tables}"
 
+@dataclasses.dataclass(frozen=True)
+class ExchangeSpec:
+    """One hash-repartition shuffle inside a local plan: the equi-join's
+    key column (intact at both scans, so the same name addresses it on
+    both sides) and the two partitioned tables to bucket.  ``left`` is
+    the anchor — output rows follow its rows through the scatter-back."""
+
+    on: str                           # join key column name
+    left: str                         # anchor-side partitioned table
+    right: str                        # other side's partitioned table
+    join_id: str = ""                 # plan node carrying the mark
+
+
+@dataclasses.dataclass
+class AggStage:
+    """One two-phase aggregation's local half: the sub-plan below the
+    ``group_agg`` capped with a ``partial_agg`` head, plus everything the
+    executor needs to run it partition-wise (or via an exchange) and fold
+    the per-morsel partials into the residual's ``slot``."""
+
+    key: Optional[str]                # group-by column (None = scalar aggs)
+    aggs: Dict[str, Tuple]            # out name -> (fn, col)
+    slot: str                         # materialized-slot the residual reads
+    anchor: str                       # partitioned table driving placement
+    part_tables: Tuple[str, ...]      # partitioned scans, anchor first
+    local_plan: Plan
+    local_raw_fn: Any
+    local_sig: str
+    n_joins: int = 0                  # partition-wise joins in local_plan
+    exchange: Optional[ExchangeSpec] = None
+
+
+@dataclasses.dataclass
+class DistributedSpec:
+    """Local/global split of a distributed-rewritten plan
+    (``core/rules/distributed_plan.py``), derived once at compile time.
+
+    Join-only plans use the top-level fields: the *local* plan is the
+    whole plan, run per morsel (co-partitioned) or per hash bucket
+    (``exchange``).  Two-phase aggregation plans carry one
+    :class:`AggStage` per eligible ``group_agg`` in ``stages`` — each
+    stage's partials fold independently into its slot, and ``global_fn``
+    (the residual above the aggregations, reading every slot through
+    ``materialized`` leaves) runs over the tiny combined
+    tables."""
+
+    anchor: str                       # partitioned table driving placement
+    part_tables: Tuple[str, ...]      # union of partitioned scans across
+                                      # stages (version-check set)
+    local_plan: Plan                  # per-morsel program (join-only mode)
+    local_raw_fn: Any                 # unwrapped closure for local_plan
+    local_sig: str                    # plan_signature(local_plan): the
+                                      # sharded-twin identity half
+    n_joins: int = 0                  # partition-wise joins in local_plan
+    exchange: Optional[ExchangeSpec] = None   # join-only shuffle, if any
+    # two-phase aggregation stages (empty for join-only plans):
+    stages: Tuple[AggStage, ...] = ()
+    global_fn: Any = None             # residual above the aggs; reads slots
+
+
 @dataclasses.dataclass
 class CompiledPrediction:
     """A cached, ready-to-serve query: optimized plan + its executable."""
@@ -283,6 +347,16 @@ class CompiledPrediction:
                                      # entries re-wrap it rather than
                                      # re-running optimize + codegen
     bucket_rows: Optional[int] = None      # set on shape-bucket entries
+    # Catalog table versions at compile time.  The sharded path compares
+    # them before trusting the plan's pruned-partition set: a table
+    # re-registered mid-flight (invalidation hooks evict this entry, but
+    # an execution already holding it races that) may keep its partition
+    # *count* while its data — and therefore its zone maps — changed.
+    catalog_versions: Tuple[Tuple[str, int], ...] = ()
+    # Local/global split for plans the distributed_plan rule rewrote
+    # (partition-wise joins / two-phase aggregation); None for row-local
+    # and whole-table plans.
+    dist: Optional[DistributedSpec] = None
 
 
 class PredictionTicket:
@@ -433,16 +507,6 @@ def _trim_rows(out: Any, n: int) -> Any:
         return Table({k: v[:n] for k, v in out.columns.items()},
                      out.valid[:n], out.schema)
     return out[:n]
-
-
-def _concat_outputs(pieces: List[Any]) -> Any:
-    if isinstance(pieces[0], Table):
-        base = pieces[0]
-        cols = {k: torch.cat([p.columns[k] for p in pieces])
-                for k in base.columns}
-        valid = torch.cat([p.valid for p in pieces])
-        return Table(cols, valid, base.schema)
-    return torch.cat(pieces)
 
 
 def _round_up(n: int, multiple: int) -> int:
@@ -627,6 +691,11 @@ class ExplainResult:
         elif self.compiled.capture is not None:
             lines.append("-- capture: materializing "
                          f"{self.compiled.capture.describe()}")
+        if self.compiled.dist is not None:
+            d = self.compiled.dist
+            mode = "exchange" if d.exchange is not None else (
+                "two_phase" if d.stages else "partition_wise")
+            lines.append(f"-- distributed: {mode} anchor={d.anchor}")
         if self.report.entries:
             lines.append("-- optimizer rules:")
             for rule, det in self.report.entries:
@@ -685,6 +754,10 @@ class PredictionService:
             self._apply_tenant_quota(name, policy)
         self._lock = threading.Lock()          # stats
         self._flush_lock = threading.Lock()    # serializes batch execution
+        # Partition-parallel executor (ExecutionConfig.sharded): built on
+        # first sharded execution so unsharded services never enumerate
+        # devices.
+        self._shard_exec: Optional[ShardedExecutor] = None
         # Admission: explicit-flush mode and the background loop share one
         # Batcher — ``admission=None`` keeps the explicit-flush contract (requests
         # wait for flush(), queue effectively unbounded since only the
@@ -836,7 +909,7 @@ class PredictionService:
         key cache/admission/tenant gauges, sampled when ``metrics_text()``
         / ``metrics_snapshot()`` is called — zero hot-path cost, and one
         registry unifies what ``cache_info()``/``admission_info()``/
-        ``tenant_info()`` previously scattered.  The
+        ``tenant_info()``/``shard_info()`` previously scattered.  The
         collector runs outside the registry lock and takes ``self._lock``
         itself, so lock order is always registry -> service, never the
         reverse (hot-path ``observe`` calls are made outside
@@ -1432,12 +1505,18 @@ class PredictionService:
         if len(scans) == 1 and all(n.op in _ROW_LOCAL_OPS
                                    for n in exec_plan.nodes.values()):
             chunk_table = scans[0]
+        dist = None
+        if splice_ref is None:
+            dist = self._distributed_spec(exec_plan, overridden, raw_fn)
         compile_time = time.perf_counter() - t0
         compiled = CompiledPrediction(
             key=key, signature=sig, plan=exec_plan, report=report, fn=fn,
             scan_tables=scans, chunk_table=chunk_table,
             compile_time_s=compile_time, model_names=model_names,
-            capture=capture_ref, splice=splice_ref, raw_fn=raw_fn)
+            capture=capture_ref, splice=splice_ref, raw_fn=raw_fn,
+            catalog_versions=tuple((t, self._table_version(t))
+                                   for t in full_scans),
+            dist=dist)
         tags = tuple(("model", m) for m in model_names) \
             + tuple(("table", t) for t in full_scans)
         evicted = self._exec_cache.put(
@@ -1451,6 +1530,152 @@ class PredictionService:
         # max_cache_entries=0 means "no caching": the fresh compile was
         # evicted immediately above, so fall back to it.
         return entry.value if entry is not None else compiled
+
+    def _distributed_spec(self, exec_plan: Plan,
+                          overridden: Tuple[str, ...],
+                          raw_fn: Any) -> Optional[DistributedSpec]:
+        """Derive the local/global split for a distributed-rewritten plan,
+        re-verifying partition-locality on the *final* optimized plan (the
+        rule marked an earlier rewrite stage; later rules only ever turn
+        model ops into row-local LA forms or drop joins, but re-deriving
+        costs little and can never be stale).  Returns ``None`` when the
+        plan is not distributable — execution then falls back to the
+        whole-table tier, which is always correct."""
+        if not self.execution_config.sharded or overridden:
+            return None
+        from ..core.rules.distributed_plan import (local_info,
+                                                   two_phase_candidates)
+        nodes = exec_plan.nodes.values()
+        has_join = any(n.op == "join" and (n.attrs.get("partition_wise")
+                                           or n.attrs.get("exchange"))
+                       for n in nodes)
+        has_agg = any(n.op == "group_agg" and n.attrs.get("two_phase")
+                      for n in nodes)
+        if not has_join and not has_agg:
+            return None
+
+        def stage_scans(local_plan: Plan, anchor: str) -> Tuple[str, ...]:
+            scans = sorted({n.attrs["table"]
+                            for n in local_plan.nodes.values()
+                            if n.op == "scan"})
+            return (anchor,) + tuple(t for t in scans if t != anchor)
+
+        def stage_joins(local_plan: Plan) -> int:
+            return sum(1 for n in local_plan.nodes.values()
+                       if n.op == "join" and n.attrs.get("partition_wise"))
+
+        if has_agg:
+            gids = two_phase_candidates(exec_plan, self.catalog)
+            if not gids:
+                return None
+            stages: List[AggStage] = []
+            residual = exec_plan.copy()
+            for i, gid in enumerate(gids):
+                g = exec_plan.nodes[gid]
+                info = local_info(exec_plan, g.inputs[0], self.catalog)
+                if info is None:
+                    return None
+                anchor, _intact, exch_join = info
+                exchange = None
+                if exch_join is not None:
+                    exchange = self._exchange_spec(exec_plan, exch_join)
+                    if exchange is None:
+                        return None  # shuffle disabled or mark went stale
+                nids = subtree_nodes(exec_plan, g.inputs[0])
+                local_plan = Plan(
+                    {n2: exec_plan.nodes[n2].copy() for n2 in nids},
+                    output=g.inputs[0])
+                head = Node(op="partial_agg", category=g.category,
+                            inputs=[local_plan.output],
+                            attrs={"key": g.attrs.get("key"),
+                                   "aggs": dict(g.attrs["aggs"]),
+                                   "num_groups": g.attrs.get("num_groups")},
+                            out_kind="table")
+                local_plan.output = local_plan.add(head)
+                # keep the historical slot name for the single-agg shape
+                slot = "__combined__" if len(gids) == 1 \
+                    else f"__combined_{i}__"
+                leaf = Node(op="materialized", category=g.category,
+                            inputs=[],
+                            attrs={"slot": slot,
+                                   "sig": f"two_phase_combined_{i}"},
+                            out_kind=g.out_kind)
+                residual.replace(gid, leaf)
+                stages.append(AggStage(
+                    key=g.attrs.get("key"), aggs=dict(g.attrs["aggs"]),
+                    slot=slot, anchor=anchor,
+                    part_tables=stage_scans(local_plan, anchor),
+                    local_plan=local_plan,
+                    local_raw_fn=compile_plan(local_plan, self.catalog,
+                                              self.execution_config),
+                    local_sig=plan_signature(local_plan),
+                    n_joins=stage_joins(local_plan), exchange=exchange))
+            residual.prune_dead()
+            # tiny (num_groups rows): unwrapped, so it counts no trace
+            global_fn = compile_plan(residual, self.catalog,
+                                     self.execution_config)
+            part_tables = tuple(dict.fromkeys(
+                t for s in stages for t in s.part_tables))
+            first = stages[0]
+            return DistributedSpec(
+                anchor=first.anchor, part_tables=part_tables,
+                local_plan=first.local_plan,
+                local_raw_fn=first.local_raw_fn,
+                local_sig=first.local_sig, n_joins=first.n_joins,
+                stages=tuple(stages), global_fn=global_fn)
+
+        info = local_info(exec_plan, exec_plan.output, self.catalog)
+        if info is None:
+            return None              # join marked but plan not fully local
+        anchor, _intact, exch_join = info
+        exchange = None
+        if exch_join is not None:
+            exchange = self._exchange_spec(exec_plan, exch_join)
+            if exchange is None:
+                return None
+        local_plan = exec_plan
+        local_raw_fn = raw_fn        # shares the (capture-aware) closure
+        return DistributedSpec(
+            anchor=anchor,
+            part_tables=stage_scans(local_plan, anchor),
+            local_plan=local_plan, local_raw_fn=local_raw_fn,
+            local_sig=plan_signature(local_plan),
+            n_joins=stage_joins(local_plan), exchange=exchange)
+
+    def _exchange_spec(self, plan: Plan,
+                       join_id: str) -> Optional[ExchangeSpec]:
+        """Derive the shuffle identity for the exchange-marked join
+        ``join_id``: the (intact) key column and the two partitioned
+        tables to bucket.  ``None`` — which sends the whole plan to
+        whole-table execution — when the exchange knob is off or the mark
+        no longer matches the final plan's shape."""
+        if not getattr(self.execution_config, "shard_exchange", True):
+            return None
+        from ..core.rules.distributed_plan import local_info
+        join = plan.nodes.get(join_id)
+        if join is None or join.op != "join" \
+                or not join.attrs.get("exchange"):
+            return None
+        left = local_info(plan, join.inputs[0], self.catalog)
+        right = local_info(plan, join.inputs[1], self.catalog)
+        if left is None or right is None \
+                or left[2] is not None or right[2] is not None:
+            return None
+        on = join.attrs["on"]
+        if on not in left[1] or on not in right[1]:
+            return None
+        # the shuffle executor buckets exactly two tables: each side must
+        # be a single-scan chain (a nested partition-wise join below an
+        # exchange would need its own aligned gather per bucket)
+        for nid, table in ((join.inputs[0], left[0]),
+                           (join.inputs[1], right[0])):
+            scans = {plan.nodes[i].attrs["table"]
+                     for i in subtree_nodes(plan, nid)
+                     if plan.nodes[i].op == "scan"}
+            if scans != {table}:
+                return None
+        return ExchangeSpec(on=on, left=left[0], right=right[0],
+                            join_id=join_id)
 
     def _maybe_upgrade_to_splice(self, key: Tuple, hit: CompiledPrediction
                                  ) -> Optional[CompiledPrediction]:
@@ -1677,7 +1902,8 @@ class PredictionService:
         catalog tables the cache key would claim (stacked micro-batches).
         ``params`` rides along in the tables dict under the reserved
         ``__params__`` slot (bound inside the closure, so every binding
-        shares one executable)."""
+        shares one executable); parameterized serves skip the sharded tier
+        (the partition executor stacks tables, not binding dicts)."""
         tabs = self._input_tables(compiled, tables)
         if params:
             tabs["__params__"] = params
@@ -1687,6 +1913,9 @@ class PredictionService:
         if compiled.splice is not None:
             out = self._execute_spliced(compiled, tabs, ctx=ctx,
                                         trace=trace)
+        elif not params and self._should_shard(compiled, tables):
+            out = self._execute_sharded(compiled, tabs, store_capture,
+                                        tenant=tenant, trace=trace)
         elif (self.chunk_rows and compiled.chunk_table is not None
                 and tabs[compiled.chunk_table].capacity > self.chunk_rows):
             out = self._execute_chunked(compiled, tabs, store_capture,
@@ -1702,8 +1931,9 @@ class PredictionService:
                        tabs: Dict[str, Table],
                        store_capture: bool = True,
                        tenant: Optional[str] = None) -> Any:
-        """One whole-input execution of the fused program (the base
-        tier)."""
+        """One whole-input execution of the fused program (the base tier;
+        also the fallback when a sharded execution loses its partitioning
+        mid-flight)."""
         t0 = time.perf_counter()
         raw = _ready(compiled.fn(tabs))
         if compiled.capture is None:
@@ -1714,6 +1944,485 @@ class PredictionService:
                                time.perf_counter() - t0,
                                producer=compiled.key, tenant=tenant)
         return out
+
+    # -- partition-parallel (sharded) tier ------------------------------------
+    def _should_shard(self, compiled: CompiledPrediction,
+                      tables: Optional[Dict[str, Table]]) -> bool:
+        """Sharded execution applies to plans the distributed_plan rule
+        rewrote (partition-wise joins / two-phase aggregation, carried in
+        ``compiled.dist``) and to row-local single-scan plans over a
+        *partitioned, non-overridden* catalog table.  Spliced plans are
+        excluded (a materialized slot's rows would have to be re-aligned
+        with each morsel's partition rows); everything else — admission
+        coalescing, result-cache producers for unsharded services,
+        invalidation — works unchanged around this branch."""
+        if not self.execution_config.sharded:
+            return False
+        if compiled.splice is not None:
+            return False
+        getter = getattr(self.catalog, "get_partitioned", None)
+        if getter is None:
+            return False
+        if compiled.dist is not None:
+            # distributed plans compile only against catalog data (the
+            # rule is off for override requests); the guard is belt and
+            # braces for hand-constructed CompiledPredictions
+            return not (tables
+                        and any(t in tables for t in compiled.scan_tables))
+        if compiled.chunk_table is None:
+            return False
+        if tables and compiled.chunk_table in tables:
+            return False            # request-supplied data: no zone maps
+        return getter(compiled.chunk_table) is not None
+
+    def _shard_executor(self) -> ShardedExecutor:
+        if self._shard_exec is None:
+            self._shard_exec = ShardedExecutor(
+                devices=self.execution_config.shard_devices,
+                home=getattr(self.catalog, "device", None) or "cpu")
+        return self._shard_exec
+
+    def _execute_sharded(self, compiled: CompiledPrediction,
+                         tabs: Dict[str, Table],
+                         store_capture: bool = True,
+                         tenant: Optional[str] = None,
+                         trace: Any = NULL_TRACE) -> Any:
+        """Place the plan's surviving partitions across the devices and
+        run the fused program per morsel (``serve/sharded.py``).  The
+        partitioned table is re-read from the catalog (not the tabs dict)
+        so partition ranges and data always describe the same object.
+        Capture-compiled plans keep their capture: the executor reassembles
+        per-morsel capture slices in partition order — bit-exact the
+        whole-table subtree value when every partition was scanned — and
+        the result cache is populated exactly as on the whole-table path.
+        When zone maps pruned partitions (or the pruned set was stale) the
+        reassembled capture covers only the surviving rows, which is *not*
+        the value the result-cache key claims, so it is discarded."""
+        if compiled.dist is not None:
+            return self._execute_distributed(compiled, tabs, store_capture,
+                                             trace=trace)
+        cfg = self.execution_config
+        name = compiled.chunk_table
+        pt = self.catalog.get_partitioned(name)
+        if pt is None:
+            # partitioning vanished between _should_shard and here (the
+            # table was re-registered unpartitioned): serve whole-table
+            return self._execute_whole(compiled, tabs, store_capture,
+                                       tenant=tenant)
+        executor = self._shard_executor()
+        scan = next(n for n in compiled.plan.nodes.values()
+                    if n.op == "scan")
+        surviving = scan.attrs.get("partitions")
+        # pt carries its own registration stamp (set under the store lock),
+        # so this check cannot be fooled by a re-registration interleaving
+        # separate catalog reads: stale stamp -> the pruned set describes
+        # other data -> scan every partition of the pt we actually hold —
+        # always sound, pruning is only ever an optimization
+        version_fresh = (name, pt.version) in compiled.catalog_versions
+        if surviving is None or not version_fresh \
+                or any(i >= pt.n_partitions for i in surviving):
+            surviving = tuple(range(pt.n_partitions))
+        parts = [pt.partitions[i] for i in surviving]
+        placement = executor.plan(
+            parts, min_bucket_rows=cfg.shard_min_bucket_rows,
+            morsel_rows=cfg.shard_morsel_rows)
+        twin, fresh, tags = self._sharded_executable(
+            compiled, placement.bucket_rows)
+        want_capture = compiled.capture is not None
+        t0 = time.perf_counter()
+        out = _ready(executor.execute(twin.fn, pt, name, parts, placement,
+                                      capture=want_capture, trace=trace))
+        elapsed = time.perf_counter() - t0
+        if want_capture:
+            out, captured = out
+            if (store_capture and version_fresh
+                    and len(parts) == pt.n_partitions):
+                self._store_result(compiled.capture, captured, elapsed,
+                                   producer=compiled.key, tenant=tenant)
+        twin.serves += 1
+        self._record_twin_cost(twin, fresh, tags, elapsed)
+        with self._lock:
+            self.stats.sharded_executions += 1
+            self.stats.shard_waves += placement.n_waves
+            self.stats.partitions_scanned += len(parts)
+            self.stats.partitions_pruned += pt.n_partitions - len(parts)
+        return out
+
+    def _execute_distributed(self, compiled: CompiledPrediction,
+                             tabs: Dict[str, Table],
+                             store_capture: bool = True,
+                             trace: Any = NULL_TRACE) -> Any:
+        """Partition-wise join / two-phase aggregation execution: place
+        the anchor table's surviving partitions across the devices, gather
+        each join side's *aligned* partitions per morsel, run the local
+        program, and — for two-phase aggregation — fold the per-morsel
+        partial states before the global residual.
+
+        Every partitioned table the local plan reads is version-checked
+        against the compile-time snapshot; any mismatch (a re-registration
+        racing the invalidation hook) voids both the pruned-partition set
+        *and* the co-partitioning proof, so the serve falls back to
+        whole-table execution — pruning and distribution are only ever
+        optimizations.  One exception earns a cheaper path: a mismatch
+        that the catalog's *append lineage* explains (rows were appended;
+        every pre-append partition is untouched) keeps two-phase
+        aggregation incremental — the cached prefix partial-state folds
+        with fresh partials over only the delta partitions (partial states
+        are additive by construction, see ``merge_partial_states``)."""
+        dist = compiled.dist
+        getter = getattr(self.catalog, "get_partitioned", None)
+        pts = {}
+        stale: Set[str] = set()
+        for t in dist.part_tables:
+            pt = getter(t) if getter is not None else None
+            if pt is None:
+                return self._execute_whole(compiled, tabs, store_capture)
+            if (t, pt.version) not in compiled.catalog_versions:
+                stale.add(t)
+            pts[t] = pt
+        if dist.stages:
+            # Pre-validate every stage before running any: a stage touching
+            # a stale table must be recoverable from a cached prefix state
+            # over only its delta partitions, else the whole plan takes the
+            # sound whole-table fallback (partial work would be wasted).
+            preps: Dict[int, Tuple] = {}
+            for i, stage in enumerate(dist.stages):
+                if not any(t in stale for t in stage.part_tables):
+                    continue
+                prep = self._agg_delta_prep(stage, pts)
+                if prep is None:
+                    with self._lock:
+                        self.stats.delta_fallbacks += 1
+                    trace.event("delta_fallback", slot=stage.slot)
+                    return self._execute_whole(compiled, tabs,
+                                               store_capture)
+                preps[i] = prep
+            slots: Dict[str, Any] = {}
+            for i, stage in enumerate(dist.stages):
+                prep = preps.get(i)
+                pt = pts[stage.anchor]
+                # Capture the merged partial state whenever this stage's
+                # serve covers the whole table (no pruning, single-table
+                # stage): the state is what a future append extends.
+                keep_state = self._result_cache is not None \
+                    and self._stage_state_eligible(stage, pt)
+                state_box: List[Any] = []
+                prefix_state = prep[1].value if prep is not None else None
+
+                def combine(partials, _s=stage, _pre=prefix_state,
+                            _keep=keep_state, _box=state_box):
+                    parts = list(partials) if _pre is None \
+                        else [_pre] + list(partials)
+                    if _keep:
+                        _box.append(merge_partial_states(parts, _s.key,
+                                                         _s.aggs))
+                    return combine_partials(parts, _s.key, _s.aggs)
+
+                if stage.exchange is not None:
+                    ok, combined, n_units = self._run_exchange(
+                        compiled, stage, pts, combine=combine, trace=trace)
+                    if not ok:     # cost gate: shuffle loses to whole-table
+                        return self._execute_whole(compiled, tabs,
+                                                   store_capture)
+                else:
+                    combined, n_units = self._run_partition_wise(
+                        compiled, stage, pts, combine=combine,
+                        surviving=prep[3] if prep is not None else None,
+                        trace=trace)
+                slots[stage.slot] = combined
+                if keep_state and state_box:
+                    skey = self._agg_state_key(stage, stage.anchor,
+                                               pt.version)
+                    if skey not in self._result_cache:
+                        evicted = self._result_cache.put(
+                            skey, _ready(state_box[0]),
+                            tags=(("table", stage.anchor),))
+                        with self._lock:
+                            self.stats.result_puts += 1
+                            self.stats.result_evictions += len(evicted)
+                    if prep is not None:
+                        popped = self._result_cache.pop(prep[2])
+                        with self._lock:
+                            if popped is not None:
+                                self.stats.prefix_supersedes += 1
+                if prep is not None:
+                    with self._lock:
+                        self.stats.delta_serves += 1
+                        self.stats.delta_rows_scanned += \
+                            pt.table.capacity - prep[0]
+                    trace.event("delta_agg", slot=stage.slot,
+                                prefix_rows=prep[0],
+                                delta_rows=pt.table.capacity - prep[0])
+                with self._lock:
+                    self.stats.shard_agg_combines += 1
+                    self.stats.shard_partial_aggs += n_units
+            with trace.span("combine_global", stages=len(dist.stages)):
+                out = dist.global_fn(slots)
+            with self._lock:
+                self.stats.sharded_executions += 1
+                if any(s.n_joins or s.exchange for s in dist.stages):
+                    self.stats.shard_join_executions += 1
+            return out
+        if stale:
+            # join-only plans have no additive state to extend: appends
+            # void the co-partitioning proof like any re-registration
+            with self._lock:
+                self.stats.delta_fallbacks += 1
+            return self._execute_whole(compiled, tabs, store_capture)
+        # join-only: the local plan IS the whole plan; drop the capture
+        # half when present (a shuffled/sharded capture is not the value
+        # the result-cache key would claim)
+        unwrap = (lambda raw: raw[0]) if compiled.capture is not None \
+            else None
+        if dist.exchange is not None:
+            ok, out, _units = self._run_exchange(compiled, dist, pts,
+                                                 unwrap=unwrap, trace=trace)
+            if not ok:
+                return self._execute_whole(compiled, tabs, store_capture)
+        else:
+            out, _units = self._run_partition_wise(compiled, dist, pts,
+                                                   unwrap=unwrap,
+                                                   trace=trace)
+        with self._lock:
+            self.stats.sharded_executions += 1
+            if dist.n_joins or dist.exchange is not None:
+                self.stats.shard_join_executions += 1
+        return out
+
+    def _agg_state_key(self, stage: AggStage, t: str,
+                       version: int) -> Tuple:
+        """Result-cache key of one stage's merged *partial state* (still
+        mergeable, unlike the finalized combined table) over ``t`` at
+        ``version`` — what a later append folds its delta partials into."""
+        return ("agg_state", stage.local_sig, (t, version),
+                self.execution_config.cache_key(), self.jit)
+
+    def _stage_state_eligible(self, stage: AggStage, pt: Any) -> bool:
+        """Whether this serve's merged partial state would cover the whole
+        table — the precondition for caching it as an append-extensible
+        prefix.  Single-table stages only (a join side has no row-prefix
+        correspondence), with no zone-map pruning in force (a pruned
+        state would silently miss rows a later delta never revisits)."""
+        if (stage.exchange is not None or stage.n_joins
+                or stage.part_tables != (stage.anchor,)):
+            return False
+        scan = next(n for n in stage.local_plan.nodes.values()
+                    if n.op == "scan" and n.attrs["table"] == stage.anchor)
+        surviving = scan.attrs.get("partitions")
+        return (surviving is None
+                or any(i >= pt.n_partitions for i in surviving)
+                or len(surviving) == pt.n_partitions)
+
+    def _agg_delta_prep(self, stage: AggStage, pts: Dict[str, Any]
+                        ) -> Optional[Tuple[int, Any, Tuple, Tuple]]:
+        """Whether one stale-anchored stage can run incrementally: its
+        (single) anchor's growth is explained by the append lineage, a
+        prefix partial-state is cached at some earlier lineage version,
+        and the partitions past that prefix tile exactly the appended
+        rows (``PartitionedTable.append`` guarantees appends open new
+        partitions at the old boundary).  Returns ``(prefix_rows,
+        state_entry, old_state_key, delta_partition_indices)`` or
+        ``None`` (-> whole-table fallback)."""
+        if (stage.exchange is not None or stage.n_joins
+                or stage.part_tables != (stage.anchor,)
+                or self._result_cache is None):
+            return None
+        t = stage.anchor
+        pt = pts[t]
+        lineage = self._version_lineage(t)
+        if len(lineage) < 2 or lineage[-1][0] != pt.version:
+            return None
+        cur_rows = lineage[-1][1]
+        for version, rows in reversed(lineage[:-1]):
+            if rows >= cur_rows:
+                continue
+            entry = self._result_cache.entry(
+                self._agg_state_key(stage, t, version))
+            if entry is None:
+                continue
+            delta = tuple(p.index for p in pt.partitions
+                          if p.start >= rows)
+            if not delta or pt.partitions[delta[0]].start != rows:
+                return None    # prefix boundary straddles a partition
+            return rows, entry, self._agg_state_key(stage, t, version), \
+                delta
+        return None
+
+    def _run_partition_wise(self, compiled: CompiledPrediction, stage: Any,
+                            pts: Dict[str, Any],
+                            combine: Optional[Any] = None,
+                            unwrap: Optional[Any] = None,
+                            surviving: Optional[Tuple[int, ...]] = None,
+                            trace: Any = NULL_TRACE
+                            ) -> Tuple[Any, int]:
+        """Run one local program (a :class:`DistributedSpec` or one
+        :class:`AggStage` — both carry anchor/part_tables/local_*) over
+        the anchor's surviving partitions with aligned co-partitioned
+        sides.  ``surviving`` overrides the compile-time pruned set (the
+        delta tier passes exactly the appended partitions).  Returns
+        ``(output, #morsels)``."""
+        cfg = self.execution_config
+        executor = self._shard_executor()
+        anchor_pt = pts[stage.anchor]
+        if surviving is None:
+            scan = next(n for n in stage.local_plan.nodes.values()
+                        if n.op == "scan"
+                        and n.attrs["table"] == stage.anchor)
+            surviving = scan.attrs.get("partitions")
+        if surviving is None \
+                or any(i >= anchor_pt.n_partitions for i in surviving):
+            surviving = tuple(range(anchor_pt.n_partitions))
+        parts = [anchor_pt.partitions[i] for i in surviving]
+        placement = executor.plan(
+            parts, min_bucket_rows=cfg.shard_min_bucket_rows,
+            morsel_rows=cfg.shard_morsel_rows)
+        sides = {t: (pts[t], side_bucket_rows(placement,
+                                              pts[t].partitions,
+                                              cfg.shard_min_bucket_rows))
+                 for t in stage.part_tables[1:]}
+        side_buckets = tuple(sorted((t, b) for t, (_pt, b)
+                                    in sides.items()))
+        twin, fresh, tags = self._twin_executable(
+            compiled,
+            sharded_signature(stage.local_sig, placement.bucket_rows,
+                              executor.mesh_shape, side_buckets),
+            placement.bucket_rows, "shard_hits", "shard_compiles",
+            raw_fn=stage.local_raw_fn)
+        t0 = time.perf_counter()
+        out = _ready(executor.execute(twin.fn, anchor_pt, stage.anchor,
+                                      parts, placement, unwrap=unwrap,
+                                      sides=sides, combine=combine,
+                                      trace=trace))
+        twin.serves += 1
+        self._record_twin_cost(twin, fresh, tags,
+                               time.perf_counter() - t0)
+        with self._lock:
+            self.stats.shard_waves += placement.n_waves
+            self.stats.partitions_scanned += len(parts)
+            self.stats.partitions_pruned += \
+                anchor_pt.n_partitions - len(parts)
+        return out, max(placement.n_morsels, 1)
+
+    def _run_exchange(self, compiled: CompiledPrediction, stage: Any,
+                      pts: Dict[str, Any], combine: Optional[Any] = None,
+                      unwrap: Optional[Any] = None,
+                      trace: Any = NULL_TRACE
+                      ) -> Tuple[bool, Any, int]:
+        """Run one local program via the hash-repartition shuffle
+        (``serve/exchange.py`` + ``ShardedExecutor.execute_exchange``).
+
+        Both sides' surviving rows are gathered on the device (in
+        partition order — the original row order the scatter-back
+        restores), their join keys hashed on the host into a
+        data-deterministic bucket split, and the per-bucket joins run as
+        device waves.  Returns ``(ok, output, #buckets)``; ``ok=False`` means the cost model gated the shuffle
+        off (bytes moved + dispatch exceed the whole-table win) and the
+        caller should fall back."""
+        from ..core.cost_model import exchange_beneficial
+        from .exchange import choose_bucket_count, plan_exchange
+        cfg = self.execution_config
+        executor = self._shard_executor()
+        exch = stage.exchange
+
+        def gather(table_name: str):
+            """The surviving rows of one side, in partition order, on the
+            tables' device."""
+            pt = pts[table_name]
+            scan = next(n for n in stage.local_plan.nodes.values()
+                        if n.op == "scan"
+                        and n.attrs["table"] == table_name)
+            surviving = scan.attrs.get("partitions")
+            if surviving is None \
+                    or any(i >= pt.n_partitions for i in surviving):
+                surviving = tuple(range(pt.n_partitions))
+            table = pt.table
+            if len(surviving) != pt.n_partitions:
+                parts = [pt.partitions[i] for i in surviving]
+                table = _concat_outputs(
+                    [table.row_slice(p.start, p.stop) for p in parts]) \
+                    if parts else table.row_slice(0, 0)
+            return table, len(surviving), pt.n_partitions
+
+        with trace.span("exchange_build", on=exch.on) as sp:
+            a_table, a_used, a_total = gather(exch.left)
+            s_table, s_used, s_total = gather(exch.right)
+            n_buckets = choose_bucket_count(a_table.capacity,
+                                            executor.n_devices,
+                                            cfg.shard_morsel_rows)
+            if cfg.shard_exchange_cost_gate and not exchange_beneficial(
+                    a_table.capacity, s_table.capacity, executor.n_devices,
+                    n_buckets):
+                with self._lock:
+                    self.stats.exchange_fallbacks += 1
+                trace.event("exchange_fallback", rows=a_table.capacity)
+                return False, None, 0
+            # the plan is made on the host: only the key columns come
+            # across; the rows stay on the device
+            placement = plan_exchange(a_table.column(exch.on),
+                                      s_table.column(exch.on),
+                                      n_buckets, cfg.shard_min_bucket_rows)
+            if sp is not None:
+                sp.attrs.update(placement.describe())
+        twin, fresh, tags = self._twin_executable(
+            compiled,
+            sharded_signature(stage.local_sig, placement.anchor_rows,
+                              executor.mesh_shape,
+                              ((exch.right, placement.side_rows),),
+                              exchange=(placement.n_buckets,
+                                        placement.anchor_rows)),
+            placement.anchor_rows, "shard_hits", "shard_compiles",
+            raw_fn=stage.local_raw_fn)
+        t0 = time.perf_counter()
+        out = _ready(executor.execute_exchange(
+            twin.fn, a_table, exch.left, s_table, exch.right, placement,
+            unwrap=unwrap, combine=combine, trace=trace))
+        twin.serves += 1
+        self._record_twin_cost(twin, fresh, tags,
+                               time.perf_counter() - t0)
+
+        def row_bytes(table: Table) -> int:
+            return 1 + sum(v.element_size() * math.prod(v.shape[1:])
+                           for v in table.columns.values())  # + validity
+
+        moved = placement.bytes_moved(row_bytes(a_table),
+                                      row_bytes(s_table))
+        with self._lock:
+            self.stats.exchange_executions += 1
+            self.stats.exchange_bytes_moved += moved
+            self.stats.shard_waves += placement.n_waves(executor.n_devices)
+            self.stats.partitions_scanned += a_used + s_used
+            self.stats.partitions_pruned += \
+                (a_total - a_used) + (s_total - s_used)
+        return True, out, max(len(placement.active_buckets), 1)
+
+    def shard_info(self) -> Dict[str, Any]:
+        """Partition-parallel ledger: device geometry plus how much work the
+        zone maps skipped and how often the distributed (join/aggregation)
+        tiers ran."""
+        executor = self._shard_exec
+        with self._lock:
+            s = self.stats
+            total = s.partitions_scanned + s.partitions_pruned
+            return {
+                "enabled": self.execution_config.sharded,
+                "devices": executor.n_devices
+                if executor is not None else None,
+                "mesh_shape": executor.mesh_shape
+                if executor is not None else None,
+                "sharded_executions": s.sharded_executions,
+                "shard_compiles": s.shard_compiles,
+                "shard_hits": s.shard_hits,
+                "shard_waves": s.shard_waves,
+                "partitions_scanned": s.partitions_scanned,
+                "partitions_pruned": s.partitions_pruned,
+                "prune_rate": s.partitions_pruned / total if total else 0.0,
+                "join_executions": s.shard_join_executions,
+                "agg_combines": s.shard_agg_combines,
+                "partial_aggs": s.shard_partial_aggs,
+                "exchange_executions": s.exchange_executions,
+                "exchange_fallbacks": s.exchange_fallbacks,
+                "exchange_bytes_moved": s.exchange_bytes_moved,
+            }
 
     def _execute_spliced(self, compiled: CompiledPrediction,
                          tabs: Dict[str, Table],
@@ -2201,6 +2910,17 @@ class PredictionService:
             compiled, bucketed_signature(compiled.signature, bucket),
             bucket, "bucket_hits", "bucket_compiles")
 
+    def _sharded_executable(self, compiled: CompiledPrediction, bucket: int
+                            ) -> Tuple[CompiledPrediction, bool, Tuple]:
+        """Shape-specialized twin for partition-parallel execution: one
+        executable per (signature, morsel bucket, device count) — every
+        device and every wave runs the same input signature, so the
+        compile count is independent of partition and device counts."""
+        return self._twin_executable(
+            compiled, sharded_signature(compiled.signature, bucket,
+                                        self._shard_exec.mesh_shape),
+            bucket, "shard_hits", "shard_compiles")
+
     def _twin_executable(self, compiled: CompiledPrediction,
                          derived_sig: str, bucket: int, hit_stat: str,
                          compile_stat: str, raw_fn: Any = None
@@ -2209,8 +2929,9 @@ class PredictionService:
         codegen closure, its own trace-accounting wrapper, cached under
         the (cache key, derived signature) pair so each derived shape
         compiles at most once while it stays resident.  ``raw_fn``
-        overrides the closure being wrapped — the delta tier's twin wraps
-        the captured *subtree*, not the whole plan.  Returns
+        overrides the closure being wrapped — the distributed tier's twin
+        wraps the *local* (per-morsel) program and the delta tier's the
+        captured *subtree*, not the whole plan.  Returns
         ``(executable, fresh, tags)`` — ``fresh`` lets the caller time the
         first (tracing) execution and re-put the observed cost (with the
         same ``tags``, so a twin whose zero-cost initial insert
@@ -2251,7 +2972,8 @@ class PredictionService:
         instead of the near-zero closure-wrapping time; tags are repeated
         so that, if the zero-cost insert self-evicted under a full cache,
         the entry re-created here stays reachable by model/table
-        invalidation.  Shared by the stacked (bucket) and delta tiers —
+        invalidation.  Shared by the stacked (bucket), sharded and delta
+        tiers —
         the re-put contract must not diverge between them."""
         if not fresh:
             return

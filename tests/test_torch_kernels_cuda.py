@@ -468,3 +468,104 @@ def test_auto_calibrates_on_the_models_own_forest(cuda_device):
     costs = tree_strategy_costs(model, _CAL_SIZES["cuda"][1], 4, cal)
     assert all(0 < v < 10.0 for v in costs.values())
     assert any(r == "tree_strategy" for r, _ in report.entries)
+
+
+@pytest.mark.cuda
+def test_sharded_service_on_the_card_equals_whole_table(cuda_device):
+    """The partition-parallel tier on one card: ``patient_info`` and
+    ``blood_tests`` co-partitioned on pid (4 partitions), query (a) served
+    partition-wise under the ``"cuda"`` strategy — one tree GEMM launch a
+    morsel, rows equal to the whole-table service's bitwise — and through
+    the hash exchange against a misaligned copy of ``blood_tests``."""
+    from repro_torch.core import ExecutionConfig, OptimizerConfig
+    from repro_torch.serve import PredictionService
+    store = _card_store()
+    n = store.get_table("patient_info").capacity
+    bounds = [n // 4, n // 2, 3 * n // 4]
+    for name in ("patient_info", "blood_tests"):
+        store.register_table(name, store.get_table(name),
+                             partition_by="pid", partition_bounds=bounds)
+    store.register_table("blood_x", store.get_table("blood_tests"),
+                         partition_by="pid",
+                         partition_bounds=[b + 7 for b in bounds])
+    opt = OptimizerConfig(tree_strategy="cuda")
+    whole = PredictionService(store, optimizer_config=opt)
+    # no result cache: a second query would splice the first's capture
+    sharded = PredictionService(
+        store, optimizer_config=opt, enable_result_cache=False,
+        execution_config=ExecutionConfig(
+            sharded=True, shard_devices=1, shard_morsel_rows=1024,
+            shard_exchange_cost_gate=False))
+    for side in ("blood_tests", "blood_x"):
+        # a blood_tests column keeps the join (the model reads only
+        # patient_info, so join elimination would drop it otherwise)
+        sql = (f"SELECT pid, hematocrit, PREDICT(MODEL='rf') AS s "
+               f"FROM patient_info JOIN {side} ON pid")
+        want = whole.run(sql)
+        before, waves = tg_ops.launches, sharded.stats.shard_waves
+        got = sharded.run(sql)
+        # one device: a wave is a morsel (or an exchange bucket)
+        assert tg_ops.launches - before \
+            == sharded.stats.shard_waves - waves > 1
+        assert got.valid.is_cuda and torch.equal(got.valid, want.valid)
+        for k in want.columns:
+            assert torch.equal(got.columns[k][got.valid],
+                               want.columns[k][want.valid]), k
+    assert sharded.stats.sharded_executions == 2
+    assert sharded.stats.shard_join_executions == 2
+    assert sharded.stats.exchange_executions == 1
+    whole.close()
+    sharded.close()
+
+
+@pytest.mark.cuda
+def test_sharded_service_over_every_card_equals_one_card(cuda_device):
+    """``shard_devices=0`` takes every card: morsels and exchange buckets
+    run on their own cards (one worker thread a card, the forest staged
+    on each), and the answers equal one card's bitwise."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    from repro_torch.core import ExecutionConfig, OptimizerConfig
+    from repro_torch.serve import PredictionService
+    store = _card_store()
+    n = store.get_table("patient_info").capacity
+    bounds = [n * i // 8 for i in range(1, 8)]
+    for name in ("patient_info", "blood_tests"):
+        store.register_table(name, store.get_table(name),
+                             partition_by="pid", partition_bounds=bounds)
+    store.register_table("blood_x", store.get_table("blood_tests"),
+                         partition_by="pid",
+                         partition_bounds=[b + 7 for b in bounds])
+    opt = OptimizerConfig(tree_strategy="cuda")
+
+    def service(devices):
+        return PredictionService(
+            store, optimizer_config=opt, enable_result_cache=False,
+            execution_config=ExecutionConfig(
+                sharded=True, shard_devices=devices, shard_morsel_rows=256,
+                shard_exchange_cost_gate=False))
+
+    one, every = service(1), service(0)
+    for side in ("blood_tests", "blood_x"):
+        sql = (f"SELECT pid, hematocrit, PREDICT(MODEL='rf') AS s "
+               f"FROM patient_info JOIN {side} ON pid")
+        want = one.run(sql)
+        before = tg_ops.launches
+        got = every.run(sql)
+        assert tg_ops.launches - before == (8 if side == "blood_tests"
+                                            else 16)
+        assert got.valid.device == want.valid.device
+        assert torch.equal(got.valid, want.valid)
+        for k in want.columns:
+            assert torch.equal(got.columns[k], want.columns[k]), k
+    agg = ("SELECT gender, AVG(__pred_0_rf) AS p FROM patient_info JOIN "
+           "blood_tests ON pid WHERE PREDICT_PROBA(MODEL='rf') >= 0 "
+           "GROUP BY gender")
+    want, got = one.run(agg), every.run(agg)
+    for k in want.columns:              # partials fold in partition order
+        assert torch.equal(got.columns[k], want.columns[k]), k
+    info = every.shard_info()
+    assert info["devices"] == torch.cuda.device_count()
+    assert every.stats.shard_waves < one.stats.shard_waves
+    one.close()
+    every.close()

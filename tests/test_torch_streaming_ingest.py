@@ -2,13 +2,17 @@
 first-class ingest path — incremental zone maps, version lineage,
 append-surviving caches, delta-only execution (row-local splice), and the
 per-request/per-tenant freshness SLA.  The cases of
-``tests/test_streaming_ingest.py`` that need no sharded tier (its
-aggregate-state and partition-version cases do) run on the port, with the
-pipeline fitted by the JAX package and carried across; a differential
-script appends the same batches in both packages and holds every answer
-bitwise to the JAX service (``jit=False``) and ``ServiceStats`` field by
-field (``jit=True`` for the trace counters).
+``tests/test_streaming_ingest.py`` run on the port, with the pipeline
+fitted by the JAX package and carried across; a differential script
+appends the same batches in both packages and holds every answer bitwise
+to the JAX service (``jit=False``) and ``ServiceStats`` field by field
+(``jit=True`` for the trace counters).  The sharded tier's cases —
+aggregate partial states extended by delta partitions under the sharded
+signature, and the per-serve partition-version checks — run the same
+appends through both packages' sharded services and compare alike.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -246,6 +250,134 @@ def test_delta_matches_full_recompute_random_appends(
             svc.close()
 
     check()
+
+
+# ---------------------------------------------------------------------------
+# Delta serving: aggregate state reuse (incremental view maintenance)
+# ---------------------------------------------------------------------------
+
+def _agg_ns(pkg):
+    if pkg == "jax":
+        from repro.core import ExecutionConfig as XConfig
+        from repro.core import ModelStore as XStore
+        from repro.relational.table import Table as XTable
+        from repro.serve import PredictionService as XService
+        return XConfig, (lambda: XStore()), XTable, XService
+    return (ExecutionConfig, (lambda: ModelStore(device="cpu")), Table,
+            PredictionService)
+
+
+def _agg_script(pkg, cols, base_rows, batches, sql, jit):
+    """Register the first ``base_rows`` rows of ``cols`` partitioned by 8,
+    serve ``sql`` through a sharded service, then append each ``(lo,
+    hi)`` row range of ``cols`` and serve again; every answer is checked
+    against a cold whole-table service over exactly the current rows.
+    Returns the answers, the per-cycle compile/trace deltas, and the
+    stats."""
+    XConfig, XStore, XTable, XService = _agg_ns(pkg)
+    full = XTable.from_pydict(cols)
+    base = _sub(full, 0, base_rows)
+    store = XStore()
+    store.register_table("t", base, partition_rows=8)
+    svc = XService(store, jit=jit, execution_config=XConfig(
+        sharded=True, shard_min_bucket_rows=4, shard_morsel_rows=16))
+    outs, deltas = [svc.run(sql)], []
+    try:
+        cur = base
+        for lo, hi in batches:
+            batch = _sub(full, lo, hi)
+            store.append_rows("t", batch)
+            cur = cur.concat_rows(batch)
+            before = (svc.stats.cache_misses, svc.stats.jit_traces,
+                      svc.stats.shard_compiles)
+            out = svc.run(sql)
+            deltas.append(tuple(
+                a - b for a, b in zip((svc.stats.cache_misses,
+                                       svc.stats.jit_traces,
+                                       svc.stats.shard_compiles), before)))
+            ref_store = XStore()
+            ref_store.register_table("t", cur, partition_rows=8)
+            ref_svc = XService(ref_store, jit=jit)
+            try:
+                want = ref_svc.run(sql)
+            finally:
+                ref_svc.close()
+            assert (np.asarray(_host(out.valid))
+                    == np.asarray(_host(want.valid))).all()
+            for k in want.columns:
+                assert (_host(out.columns[k])
+                        == _host(want.columns[k])).all(), k
+            outs.append(out)
+        return outs, deltas, dataclasses.asdict(svc.stats)
+    finally:
+        svc.close()
+
+
+def _host(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _agg_differential(cols, base_rows, batches, sql, jit):
+    """The same appends through both packages' sharded services: answers
+    bitwise equal (unjitted), compile deltas and stats field by field."""
+    jouts, jdeltas, jstats = _agg_script("jax", cols, base_rows, batches,
+                                         sql, jit)
+    touts, tdeltas, tstats = _agg_script("torch", cols, base_rows, batches,
+                                         sql, jit)
+    assert tstats == jstats and tdeltas == jdeltas
+    if not jit:
+        for jo, to in zip(jouts, touts):
+            assert (_host(to.valid) == _host(jo.valid)).all()
+            for k in jo.columns:
+                assert _host(to.columns[k]).dtype \
+                    == _host(jo.columns[k]).dtype, k
+                assert (_host(to.columns[k]) == _host(jo.columns[k])).all()
+    return tdeltas, tstats
+
+
+@pytest.mark.parametrize("jit", [False, True], ids=["eager", "jit"])
+@pytest.mark.parametrize("sql", [
+    "SELECT SUM(x) AS s, COUNT(x) AS n, AVG(x) AS a, MIN(x) AS lo, "
+    "MAX(x) AS hi FROM t",
+    "SELECT k, SUM(x) AS s, COUNT(x) AS n, AVG(x) AS a FROM t GROUP BY k",
+], ids=["global", "keyed"])
+def test_agg_delta_bitwise_and_zero_compiles(sql, jit):
+    rng = np.random.RandomState(5)
+    cols = {"x": rng.randint(0, 9, 96).astype(np.float32),
+            "k": rng.randint(0, 3, 96).astype(np.int32)}
+    # batches drawn from the base's own rows: stats-stable appends
+    batches = [(64 - 16 * c, 64 - 16 * (c - 1)) for c in range(1, 3)]
+    deltas, stats = _agg_differential(cols, 64, batches, sql, jit)
+    # delta partitions share the normal serve's shard signature, so even
+    # the first delta cycle re-traces nothing
+    assert deltas == [(0, 0, 0)] * 2
+    assert stats["delta_serves"] == 2
+    assert stats["delta_fallbacks"] == 0
+    assert stats["prefix_supersedes"] >= 1
+
+
+def test_stats_changing_append_falls_back_to_full():
+    rng = np.random.RandomState(9)
+    cols = {"x": np.concatenate([rng.randint(0, 9, 64),
+                                 np.full(8, 500)]).astype(np.float32),
+            "k": np.concatenate([rng.randint(0, 3, 64),
+                                 np.ones(8)]).astype(np.int32)}
+    # max(x) grows past the base's: a 'table' invalidation, full serve
+    _deltas, stats = _agg_differential(
+        cols, 64, [(64, 72)], "SELECT k, SUM(x) AS s FROM t GROUP BY k",
+        jit=False)
+    assert stats["delta_serves"] == 0
+
+
+def test_mid_flight_append_serves_current_rows():
+    # A plan compiled before the append holds pre-append partition
+    # metadata; the per-serve version check must re-resolve partitions so
+    # the appended rows are scanned (never silently dropped).
+    cols = {"x": np.arange(96, dtype=np.float32),
+            "k": (np.arange(96) % 3).astype(np.int32)}
+    # out-of-domain: x extends past the base's max
+    _agg_differential(cols, 64, [(64, 96)],
+                      "SELECT k, SUM(x) AS s FROM t GROUP BY k", jit=False)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """End-to-end request tracing + unified metrics registry, on the port.
-The cases of ``tests/test_telemetry.py`` that need no sharded tier run on
-the port's service (pipelines fitted by the JAX package, carried across);
-a differential script holds the port's traces (span names per request)
-and metrics surface (the same ``repro_`` names and counter values) to
-the JAX package's.
+The cases of ``tests/test_telemetry.py`` run on the port's service
+(pipelines fitted by the JAX package, carried across); a differential
+script holds the port's traces (span names per request) and metrics
+surface (the same ``repro_`` names and counter values) to the JAX
+package's, and the sharded cases hold their spans' names, tracks and
+placement attributes to the JAX service's on the same data.
 
 Four layers of guarantees:
 
@@ -16,8 +17,8 @@ Four layers of guarantees:
 3. **Trace completeness per serving path**: cold compile, warm hit,
    coalesced groups and result-cache splice each leave their signature
    spans in the request's trace — the observability contract the
-   EXPLAIN/trace tooling reads.  (The sharded-morsel and shuffle-exchange
-   cases belong to the partition-parallel tier, not in the port yet.)
+   EXPLAIN/trace tooling reads — sharded morsel waves and shuffle-exchange
+   buckets included.
 4. **Off is free**: ``telemetry=False`` yields the shared NULL_TRACE
    (zero spans retained, ``ticket.trace()`` is None) and zero hot-path
    registry writes, while pull-time collectors keep working.
@@ -272,20 +273,71 @@ def test_splice_trace_visible_in_second_query(store):
     svc.close()
 
 
-def _exchange_store(n_pids=48, per_pid=4, seed=3):
+def _sharded_trace_run(pkg):
+    """One sharded scan with zone-map pruning, served by ``pkg``'s
+    service: its stats and its trace's ``shard_wave`` spans."""
+    if pkg == "jax":
+        from repro.core import ExecutionConfig as XConfig
+        from repro.core import ModelStore as XStore
+        from repro.relational.table import Table as XTable
+        from repro.serve import PredictionService as XService
+        kw = {}
+    else:
+        XConfig, XStore, XTable, XService = (ExecutionConfig, ModelStore,
+                                             Table, PredictionService)
+        kw = {"device": "cpu"}
+    rng = np.random.RandomState(0)
+    n = 1200
+    t = XTable.from_pydict({
+        "pid": np.arange(n),
+        "age": np.sort(rng.randint(0, 100, n)).astype(np.int32)})
+    store = XStore(**kw)
+    store.register_table("people", t, partition_rows=200)
+    svc = XService(store, execution_config=XConfig(
+        sharded=True, shard_min_bucket_rows=32))
+    svc.run("SELECT pid FROM people WHERE age < 30")
+    (tr,) = svc.traces()
+    waves = [(s.name, s.tid, dict(s.attrs)) for s in tr.spans()
+             if s.name == "shard_wave"]
+    stats = (svc.stats.sharded_executions, svc.stats.partitions_scanned,
+             svc.stats.shard_waves)
+    names = tr.span_names()
+    svc.close()
+    return stats, waves, names
+
+
+def test_sharded_trace_carries_shard_waves():
+    (executions, scanned, n_waves), waves, names = \
+        _sharded_trace_run("torch")
+    assert executions == 1
+    assert waves and all(tid >= 1 for _n, tid, _a in waves)
+    assert sum(a["partitions"] for _n, _t, a in waves) == scanned
+    # the same spans, tracks and attributes as the JAX service's trace
+    assert _sharded_trace_run("jax") == ((executions, scanned, n_waves),
+                                         waves, names)
+
+
+def _exchange_store(n_pids=48, per_pid=4, seed=3, pkg="torch"):
     """Fact/dim pair partitioned on *different* keys, so the join can only
-    shard through the hash-repartition exchange (test_exchange idiom)."""
+    shard through the hash-repartition exchange (test_exchange idiom);
+    ``pkg="jax"`` builds the same store in the JAX package."""
+    if pkg == "jax":
+        from repro.core import ModelStore as XStore
+        from repro.relational.table import Table as XTable
+        kw = {}
+    else:
+        XStore, XTable, kw = ModelStore, Table, {"device": "cpu"}
     rng = np.random.RandomState(seed)
     n_rows = n_pids * per_pid
-    visits = Table.from_pydict({
+    visits = XTable.from_pydict({
         "oid": np.arange(n_rows, dtype=np.int64),
         "pid": rng.permutation(np.repeat(
             np.arange(n_pids, dtype=np.int32), per_pid)),
         "amount": rng.uniform(0.0, 9.0, n_rows).astype(np.float32)})
-    patients = Table.from_pydict({
+    patients = XTable.from_pydict({
         "pid": np.arange(n_pids, dtype=np.int32),
         "age": rng.uniform(0.0, 99.0, n_pids).astype(np.float32)})
-    store = ModelStore(device="cpu")
+    store = XStore(**kw)
     store.register_table("visits", visits, partition_by="oid",
                          partition_bounds=[n_rows // 2])
     store.register_table("patients", patients, partition_by="pid",
@@ -293,13 +345,48 @@ def _exchange_store(n_pids=48, per_pid=4, seed=3):
     return store
 
 
-def _join_plan():
-    plan = Plan()
+def _join_plan(plan_cls=Plan):
+    plan = plan_cls()
     v = plan.emit("scan", "RA", [], "table", table="visits")
     p = plan.emit("scan", "RA", [], "table", table="patients")
     plan.output = plan.emit("join", "RA", [v, p], "table", on="pid",
                             how="inner")
     return plan
+
+
+def _exchange_trace_run(pkg):
+    if pkg == "jax":
+        from repro.core import ExecutionConfig as XConfig
+        from repro.core.ir import Plan as XPlan
+        from repro.serve import PredictionService as XService
+    else:
+        XConfig, XPlan, XService = ExecutionConfig, Plan, PredictionService
+    svc = XService(_exchange_store(pkg=pkg), execution_config=XConfig(
+        sharded=True, shard_min_bucket_rows=4, shard_morsel_rows=16,
+        shard_exchange_cost_gate=False))
+    svc.run(_join_plan(XPlan))
+    (tr,) = svc.traces()
+    spans = [(s.name, s.tid, dict(s.attrs)) for s in tr.spans()
+             if s.name.startswith("exchange_")]
+    out = (svc.stats.exchange_executions, svc.stats.exchange_bytes_moved,
+           tr.find("exchange_build").attrs, spans, tr.span_names())
+    svc.close()
+    return out
+
+
+def test_exchange_trace_spans_and_placement_attrs():
+    executions, moved, build, spans, names = _exchange_trace_run("torch")
+    assert executions == 1 and moved > 0
+    assert build["on"] == "pid"
+    assert build["n_buckets"] >= 1          # ExchangePlacement.describe
+    assert build["anchor_rows_total"] == 192
+    buckets = [s for s in spans if s[0] == "exchange_bucket"]
+    assert buckets and all(tid >= 1 for _n, tid, _a in buckets)
+    scatter = [a for n, _t, a in spans if n == "exchange_scatter"]
+    assert scatter and scatter[0]["rows"] == 192
+    # the same shuffle, spans and bytes as the JAX service's
+    assert _exchange_trace_run("jax") == (executions, moved, build, spans,
+                                          names)
 
 
 def test_export_traces_writes_chrome_json(store, tmp_path):
