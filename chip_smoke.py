@@ -99,6 +99,31 @@ Phases (each prints JSON lines; any failure exits non-zero):
                whole-table.  Prints cold and warm ms, morsels, waves,
                bucket rows, exchange bytes, the exchange's planning ms and
                the span times.
+6c. fits   — the port fits its own models and clusters them, at the
+               paper's sizes (no kernel of its own: autograd, reductions
+               and GEMVs).  Fig 2a: ``flight_features(700_000)``, for each
+               l1 in (0.002, 0.01, 0.05) benchmarks/common.py's
+               ``flights_lr_pipeline`` (one-hot origin/dest/carrier/dow,
+               the scaler, 300 ISTA steps) fitted on the card twice
+               (bitwise equal) and once on the CPU (weights and bias
+               within 1e-5; zero sets equal, or every index zero in one
+               fit only under 1e-5 in the other), then ``SELECT dep_hour,
+               PREDICT_PROBA(MODEL='delay') AS p FROM flights`` with and
+               without projection pushdown, bitwise equal.  Fig 2b: the
+               l1 = 0.003 pipeline fitted on the card, k-means clustered
+               models (k = 2, 4, 8, 16) built on the card from the first
+               20,000 rows over origin/dest/carrier, each routed over all
+               700,000 rows: labels agree with the full model on >= 0.999
+               of the rows, the CPU's routed labels are bitwise the
+               card's, ``register_clustered`` / ``get_clustered`` round
+               trip.  Fig 3: quickstart's seven features scaled into an
+               MLP (64, 32), 60 SGD steps on the first 100,000 patients,
+               fitted on the card twice (bitwise) and on the CPU (rtol
+               1e-5 / atol 1e-6), served as ``los_mlp`` through
+               ``PredictionService`` at 1,000,000 patients cold and warm
+               twice (equal answers, 0 plans compiled in the second warm
+               round), bitwise equal to the CPU's run of the same state on
+               the first 65,536 pids.  Prints fit, build and query ms.
 7. lm, lm_rwkv, lm_hymba — the LM paths, each a model at full width and
                depth (random bfloat16 weights from a seeded generator on
                the card) served by ``InferenceEngine`` with 4 slots, greedy,
@@ -134,6 +159,7 @@ earlier checkout times that checkout's kernel with the same timer.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import math
@@ -1071,6 +1097,245 @@ def phase_sharded(tables, pipe):
           "seconds": time.perf_counter() - t0})
     return launched
 
+# -- phase 6c ------------------------------------------------------------------
+
+FLIGHT_ROWS = 700_000              # Fig 2a/2b: the paper's 700K flight tuples
+FIG2A_L1 = (0.002, 0.01, 0.05)     # benchmarks/fig2a's sweep
+FIG2B_L1 = 0.003
+FIG2B_SAMPLE = 20_000              # k-means sample: the first 20,000 rows
+FIG2B_KS = (2, 4, 8, 16)
+FIG2B_COLUMNS = ["origin", "dest", "carrier"]
+FIG2B_AGREE = 0.999                # routed vs full labels (the JAX tests')
+FIG3_FIT_ROWS = 100_000            # benchmarks/fig3's largest size
+FIG3_CPU_PIDS = 65_536             # the CPU's run of the served query
+FIT_ATOL = 1e-5                    # card vs CPU: linear weights and bias
+MLP_RTOL, MLP_ATOL = 1e-5, 1e-6    # card vs CPU: MLP parameters
+FIG2A_SQL = "SELECT dep_hour, PREDICT_PROBA(MODEL='delay') AS p FROM flights"
+CARD = "cuda"                      # where phase fits' card work runs
+FIG3_SQL = ("SELECT pid, PREDICT(MODEL='los_mlp') AS cls "
+            "FROM patient_info JOIN blood_tests ON pid")
+
+
+def flights_pipeline(l1):
+    """benchmarks/common.py's ``flights_lr_pipeline``, in the port: one-hot
+    origin/dest/carrier/dow, the scaler, L1 logistic regression."""
+    from repro_torch.ml import (LogisticRegression, OneHotEncoder, Pipeline,
+                                PipelineMetadata, StandardScaler)
+    return Pipeline([OneHotEncoder(["origin", "dest", "carrier", "dow"]),
+                     StandardScaler(["distance", "taxi_out", "dep_hour"])],
+                    LogisticRegression(l1=l1, steps=300),
+                    PipelineMetadata(name="delay", task="classification"))
+
+
+def timed_fit(make, data, y, device):
+    """Fit a fresh pipeline; (pipeline, ms).  The fit ends by copying the
+    weights to the host, so the host clock spans the device's work."""
+    t = time.perf_counter()
+    pipe = make().fit(data, y, device=device)
+    return pipe, (time.perf_counter() - t) * 1e3
+
+
+def host_ms(fn, runs=3):
+    """Median host-clock ms of ``fn``, the card synchronized around each."""
+    import torch
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def phase_fits(tables):
+    """The port fits its own models and clusters them, at the paper's
+    sizes: Fig 2a (L1 logistic fits on 700K flights, served with and
+    without projection pushdown), Fig 2b (k-means clustered models routed
+    over all 700K rows) and Fig 3 (an MLP fitted on 100,000 patients and
+    served through ``PredictionService`` at 1,000,000)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (CrossOptimizer, ModelStore,
+                                  OptimizerConfig, codegen, compile_plan,
+                                  parse_query)
+    from repro_torch.core.clustering import build_clustered_model
+    from repro_torch.data import flight_features
+    from repro_torch.ml import MLP, Pipeline, PipelineMetadata, StandardScaler
+    from repro_torch.ml.convert import pipeline_from_state, pipeline_state
+    from repro_torch.relational import Table
+    from repro_torch.relational.table import to_numpy
+    from repro_torch.serve import PredictionService
+    t0 = time.perf_counter()
+    fcols, fy = flight_features(FLIGHT_ROWS)
+    flights = Table.from_pydict({**fcols, "delayed": fy})
+
+    # (i) Fig 2a: fits, then the query with and without pushdown
+    for l1 in FIG2A_L1:
+        make = functools.partial(flights_pipeline, l1)
+        (pipe, card_ms), (again, _) = (timed_fit(make, fcols, fy, CARD)
+                                       for _ in range(2))
+        m, m2 = pipe.model, again.model
+        if not (np.array_equal(m.weights, m2.weights) and m.bias == m2.bias):
+            fail(f"fits: Fig 2a l1={l1}: two fits on the card differ")
+        cpu, cpu_ms = timed_fit(make, fcols, fy, "cpu")
+        w_err = float(np.max(np.abs(m.weights - cpu.model.weights)))
+        b_err = abs(m.bias - cpu.model.bias)
+        only_one = sorted(set(m.zero_weight_features().tolist())
+                          ^ set(cpu.model.zero_weight_features().tolist()))
+        if w_err > FIT_ATOL or b_err > FIT_ATOL or any(
+                abs(m.weights[i]) >= FIT_ATOL
+                or abs(cpu.model.weights[i]) >= FIT_ATOL for i in only_one):
+            fail(f"fits: Fig 2a l1={l1}: card vs CPU fit: weights {w_err}, "
+                 f"bias {b_err}, zero in one only {only_one}")
+        store = ModelStore(device=CARD)
+        store.register_table("flights", flights)
+        store.register_model("delay", pipe)
+        plan = parse_query(FIG2A_SQL, store)
+        base, _ = CrossOptimizer(store, OptimizerConfig(
+            enable_projection_pushdown=False)).optimize(plan)
+        opt, rep = CrossOptimizer(store, OptimizerConfig()).optimize(plan)
+        tabs = {"flights": store.get_table("flights")}
+        f0, f1 = compile_plan(base, store), compile_plan(opt, store)
+        out0, out1 = host(f0(tabs)), host(f1(tabs))
+        if not same(out0, out1):
+            fail(f"fits: Fig 2a l1={l1}: pushdown changed the answer")
+        if not np.isfinite(out0["p"]).all():
+            fail(f"fits: Fig 2a l1={l1}: probabilities not finite")
+        emit({"phase": "fits", "figure": "2a", "l1": l1, "rows": FLIGHT_ROWS,
+              "features": int(m.weights.shape[0]),
+              "sparsity": m.sparsity(),
+              "fit_ms": card_ms, "cpu_fit_ms": cpu_ms,
+              "card_fits_bitwise": True, "max_abs_err_weights": w_err,
+              "abs_err_bias": b_err, "zero_in_one_only": len(only_one),
+              "pushdown": next((d for r, d in rep.entries
+                                if r == "projection_pushdown"), "no-op"),
+              "base_query_ms": host_ms(lambda: f0(tabs)),
+              "pushdown_query_ms": host_ms(lambda: f1(tabs)),
+              "bitwise_equal": True})
+        del store, base, opt, f0, f1
+
+    # (ii) Fig 2b: clustered models over all 700K rows
+    pipe, fit_ms = timed_fit(functools.partial(flights_pipeline, FIG2B_L1),
+                             fcols, fy, CARD)
+    cols = {k: torch.as_tensor(v, device=CARD) for k, v in fcols.items()}
+    cpu_cols = {k: torch.from_numpy(v) for k, v in fcols.items()}
+    full = pipe.predict(cols).to(torch.float32)
+    full_ms = host_ms(lambda: pipe.predict(cols))
+    sample = {k: v[:FIG2B_SAMPLE] for k, v in fcols.items()}
+    store = ModelStore(device=CARD)
+    for k in FIG2B_KS:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cm = build_clustered_model(pipe, sample, k=k,
+                                   cluster_columns=FIG2B_COLUMNS,
+                                   device=CARD)
+        build_s = time.perf_counter() - t
+        assign = cm.assign(cols)
+        routed = cm.predict_routed(cols, assign)
+        agree = float((routed == full).to(torch.float32).mean())
+        if agree < FIG2B_AGREE:
+            fail(f"fits: Fig 2b k={k}: routed labels agree with the full "
+                 f"model on {agree} of the rows, under {FIG2B_AGREE}")
+        cpu_assign = cm.assign(cpu_cols)
+        if not (torch.equal(cpu_assign, assign.cpu()) and torch.equal(
+                cm.predict_routed(cpu_cols, cpu_assign), routed.cpu())):
+            fail(f"fits: Fig 2b k={k}: the CPU's routed labels differ")
+        store.register_clustered(f"delay_k{k}", cm)
+        if store.get_clustered(f"delay_k{k}") is not cm:
+            fail(f"fits: Fig 2b k={k}: register_clustered round trip")
+        cost = cm.model_cost()
+        emit({"phase": "fits", "figure": "2b", "k": k, "rows": FLIGHT_ROWS,
+              "sample_rows": FIG2B_SAMPLE, "fit_ms": fit_ms,
+              "build_s": build_s,
+              "cluster_rows": torch.bincount(assign, minlength=k).tolist(),
+              "original_features": cost["original_features"],
+              "mean_cluster_features": cost["mean_cluster_features"],
+              "cluster_features": [e.n_features for e in cm.entries],
+              "agree": agree, "cpu_bitwise": True,
+              "routed_ms": host_ms(lambda: cm.predict_routed(cols, assign)),
+              "full_ms": full_ms})
+    del cols, cpu_cols, store
+
+    # (iii) Fig 3: the MLP pipeline, fitted on 100,000 patients, served
+    data = {c: to_numpy(t.column(c)) for t in tables.values()
+            for c in t.names}
+    fit_data = {c: data[c][:FIG3_FIT_ROWS] for c in FEATURES}
+    label = (data["length_of_stay"][:FIG3_FIT_ROWS] > 7.0).astype(np.int32)
+
+    def make():
+        return Pipeline([StandardScaler(FEATURES)],
+                        MLP(hidden=(64, 32), n_outputs=2, steps=60),
+                        PipelineMetadata(name="los_mlp",
+                                         task="classification"))
+    (pipe, card_ms), (again, _) = (timed_fit(make, fit_data, label, CARD)
+                                   for _ in range(2))
+    cpu, cpu_ms = timed_fit(make, fit_data, label, "cpu")
+    err = 0.0
+    for p, p2, pc in zip(pipe.model.params, again.model.params,
+                         cpu.model.params):
+        for k in ("w", "b"):
+            if not np.array_equal(p[k], p2[k]):
+                fail("fits: Fig 3: two MLP fits on the card differ")
+            if not np.allclose(p[k], pc[k], rtol=MLP_RTOL, atol=MLP_ATOL):
+                fail(f"fits: Fig 3: card vs CPU MLP {k} beyond rtol "
+                     f"{MLP_RTOL} / atol {MLP_ATOL}")
+            err = max(err, float(np.max(np.abs(p[k] - pc[k]))))
+    store = ModelStore(device=CARD)
+    for name in ("patient_info", "blood_tests"):
+        store.register_table(name, tables[name])
+    store.register_model("los_mlp", pipe)
+    svc = PredictionService(store)
+    try:
+        ms, outs = [], []
+        for r in range(3):
+            if r == 2:
+                c2 = codegen.compile_stats["plans_compiled"]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs.append(host(svc.sql(FIG3_SQL)))
+            ms.append((time.perf_counter() - t) * 1e3)
+        compiles2 = codegen.compile_stats["plans_compiled"] - c2
+    finally:
+        svc.close()
+    if not (same(outs[0], outs[1]) and same(outs[0], outs[2])):
+        fail("fits: Fig 3: cold and warm answers differ")
+    if compiles2:
+        fail(f"fits: Fig 3: the second warm round compiled {compiles2} plans")
+    cpu_store = ModelStore(device="cpu")
+    for name in ("patient_info", "blood_tests"):
+        cpu_store.register_table(name, rows_of(tables[name], 0,
+                                               FIG3_CPU_PIDS))
+    cpu_store.register_model("los_mlp",
+                             pipeline_from_state(pipeline_state(pipe)))
+    cpu_svc = PredictionService(cpu_store)
+    try:
+        want = host(cpu_svc.sql(FIG3_SQL))
+    finally:
+        cpu_svc.close()
+
+    def first_pids(h):
+        keep = h["valid"] & (h["pid"] < FIG3_CPU_PIDS)
+        order = np.argsort(h["pid"][keep], kind="stable")
+        return {k: h[k][keep][order] for k in ("pid", "cls")}
+    got, want = first_pids(outs[0]), first_pids(want)
+    if len(want["pid"]) != FIG3_CPU_PIDS or not same(got, want):
+        fail("fits: Fig 3: the card's answer differs from the CPU's on "
+             f"the first {FIG3_CPU_PIDS} pids")
+    emit({"phase": "fits", "figure": "3", "rows": N_ROWS,
+          "fit_rows": FIG3_FIT_ROWS, "fit_ms": card_ms, "cpu_fit_ms": cpu_ms,
+          "card_fits_bitwise": True, "max_abs_err_params": err,
+          "class_1_share": float(outs[0]["cls"][outs[0]["valid"]].mean()),
+          "cold_ms": ms[0], "warm_ms": ms[1:],
+          "second_warm_round_plans_compiled": compiles2,
+          "cpu_pids_bitwise": FIG3_CPU_PIDS})
+    del store
+    torch.cuda.empty_cache()
+    emit({"phase": "fits", "step": "done",
+          "seconds": time.perf_counter() - t0})
+
 # -- phase 3, attention ------------------------------------------------------
 
 FLASH_SHAPES = [  # (b, s, t, h, kv, d): groups 1, 2, 4, 5; S, T off the tile
@@ -1893,6 +2158,8 @@ def main() -> None:
     del outs, store
     torch.cuda.empty_cache()
     sharded_launches = phase_sharded(tables, pipe)
+    torch.cuda.empty_cache()
+    phase_fits(tables)
     del tables
     torch.cuda.empty_cache()
 

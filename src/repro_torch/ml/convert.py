@@ -7,6 +7,13 @@ package's :class:`~repro_torch.ml.pipeline.Pipeline` from such a dict.  The
 state holds the featurizers' fitted statistics, each tree's ``TreeArrays``
 fields, linear weights and bias, and MLP ``[{"w", "b"}]`` layers.  Arrays are
 read with ``np.asarray``, so any array type that converts to numpy works.
+
+The port needs no other package to get a fitted model: it fits its own
+linear, logistic and MLP models on ``torch.autograd`` (``fit(...,
+device=...)``, ``Pipeline.fit``) and its trees in numpy, and clusters them
+(``repro_torch.core.clustering``).  Carrying state across is for holding
+the two packages to each other on the same fitted model, and for moving a
+model fitted on one device to a store on another.
 """
 
 from __future__ import annotations

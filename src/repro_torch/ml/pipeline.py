@@ -14,9 +14,13 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..relational.table import resolve_device
 from .featurize import FeatureMapping
 
 __all__ = ["Pipeline", "PipelineMetadata"]
+
+# model kinds whose ``fit`` trains on a device (the others are numpy CART)
+_TENSOR_FITS = ("linear_regression", "logistic_regression", "mlp")
 
 
 @dataclasses.dataclass
@@ -64,15 +68,22 @@ class Pipeline:
         return cols
 
     # -- fit / transform -----------------------------------------------------
-    def fit(self, data: Dict[str, np.ndarray], y: np.ndarray) -> "Pipeline":
-        """Fit featurizers, then the model on the featurized host data (on
-        the CPU: fitting is numpy, as in the JAX package)."""
+    def fit(self, data: Dict[str, np.ndarray], y: np.ndarray, *,
+            device: Any = None) -> "Pipeline":
+        """Fit the featurizers (numpy), then the model on the featurized
+        data.  Linear and MLP models train with ``torch.autograd`` on
+        ``device`` (``None`` is the card; pass ``"cpu"`` on a CPU box), the
+        features computed there; tree models keep their numpy CART fit on
+        the host."""
         for f in self.featurizers:
             f.fit(data)
+        on_device = self.model.kind in _TENSOR_FITS
+        dev = resolve_device(device) if on_device else torch.device("cpu")
         x = self.transform(
-            {k: torch.from_numpy(np.asarray(v, np.float32))
-             for k, v in data.items()}).numpy()
-        self.model.fit(x, y, feature_names=self.feature_mapping().names)
+            {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+             for k, v in data.items()})
+        self.model.fit(x if on_device else x.numpy(), y,
+                       feature_names=self.feature_mapping().names)
         return self
 
     def transform(self, columns: Dict[str, torch.Tensor]) -> torch.Tensor:

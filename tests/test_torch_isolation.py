@@ -36,6 +36,7 @@ def _violations(path: Path):
 def test_scan_covers_the_package():
     assert len(_FILES) > 30
     assert any(p.name == "codegen.py" for p in _FILES)
+    assert ROOT / "src" / "repro_torch" / "core" / "clustering.py" in _FILES
 
 
 @pytest.mark.parametrize("path", _FILES,

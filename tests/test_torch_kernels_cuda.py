@@ -569,3 +569,75 @@ def test_sharded_service_over_every_card_equals_one_card(cuda_device):
     assert every.stats.shard_waves < one.stats.shard_waves
     one.close()
     every.close()
+
+
+# -- the fits and k-means on the card (no kernel of their own: plain
+# tensor code, held to itself and to the port's CPU run) --------------------
+
+FIT_ATOL = 1e-5                   # card vs CPU: linear weights and bias
+MLP_RTOL, MLP_ATOL = 1e-5, 1e-6   # card vs CPU: MLP parameters
+
+
+def _flight_pipeline(l1, steps):
+    from repro_torch.ml import (LogisticRegression, OneHotEncoder, Pipeline,
+                                PipelineMetadata, StandardScaler)
+    return Pipeline([OneHotEncoder(["origin", "dest", "carrier", "dow"]),
+                     StandardScaler(["distance", "taxi_out", "dep_hour"])],
+                    LogisticRegression(l1=l1, steps=steps),
+                    PipelineMetadata(name="delay"))
+
+
+@pytest.mark.cuda
+def test_logistic_fit_on_the_card_is_deterministic_and_matches_cpu(
+        cuda_device):
+    from repro_torch.data import flight_features
+    fcols, fy = flight_features(20_000, seed=3)
+    card = [_flight_pipeline(0.01, 100).fit(fcols, fy).model
+            for _ in range(2)]
+    cpu = _flight_pipeline(0.01, 100).fit(fcols, fy, device="cpu").model
+    assert np.array_equal(card[0].weights, card[1].weights)
+    assert card[0].bias == card[1].bias
+    np.testing.assert_allclose(card[0].weights, cpu.weights, rtol=0,
+                               atol=FIT_ATOL)
+    assert abs(card[0].bias - cpu.bias) <= FIT_ATOL
+    only_one = set(card[0].zero_weight_features()) ^ set(
+        cpu.zero_weight_features())
+    assert all(abs(card[0].weights[i]) < FIT_ATOL
+               and abs(cpu.weights[i]) < FIT_ATOL for i in only_one)
+
+
+@pytest.mark.cuda
+def test_mlp_fit_on_the_card_is_deterministic_and_matches_cpu(cuda_device):
+    from repro_torch.data import hospital_features
+    from repro_torch.ml import MLP
+    cols, y = hospital_features(20_000, seed=6)
+    x = np.stack([cols[c] for c in ("age", "gender", "pregnant", "rcount",
+                                    "hematocrit", "neutrophils", "bp")],
+                 1).astype(np.float32)
+    x = (x - x.mean(0)) / x.std(0)
+    card = [MLP(hidden=(64, 32), steps=60).fit(x, y) for _ in range(2)]
+    cpu = MLP(hidden=(64, 32), steps=60).fit(x, y, device="cpu")
+    for a, b, c in zip(card[0].params, card[1].params, cpu.params):
+        for k in ("w", "b"):
+            assert np.array_equal(a[k], b[k])
+            np.testing.assert_allclose(a[k], c[k], rtol=MLP_RTOL,
+                                       atol=MLP_ATOL)
+
+
+@pytest.mark.cuda
+def test_kmeans_on_the_card_matches_cpu(cuda_device):
+    from repro_torch.core.clustering import kmeans
+    from repro_torch.data import flight_features
+    fcols, _ = flight_features(20_000, seed=3)
+    x = torch.as_tensor(np.stack([fcols[c] for c in ("origin", "dest",
+                                                     "carrier")], 1),
+                        dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    for k in (2, 8, 16):
+        init = rng.choice(x.shape[0], k, replace=False)
+        cc, ca = kmeans(x.to(cuda_device), k, init_idx=init)
+        hc, ha = kmeans(x, k, init_idx=init)
+        assert ca.device.type == "cuda"
+        assert torch.equal(ca.cpu(), ha)
+        np.testing.assert_allclose(cc.cpu().numpy(), hc.numpy(), rtol=0,
+                                   atol=1e-6)

@@ -206,10 +206,17 @@ def test_linear_and_mlp_inference_allclose(flight_models, name):
 
 
 def test_linear_and_mlp_fit_not_ported():
-    with pytest.raises(NotImplementedError):
-        tml.LogisticRegression().fit(np.zeros((4, 2)), np.zeros(4))
-    with pytest.raises(NotImplementedError):
-        tml.MLP().fit(np.zeros((4, 2)), np.zeros(4))
+    """The fits are ported (``tests/test_torch_fit.py`` holds them against
+    the JAX package): numpy data fits on the card, or raises without one
+    unless the caller asks for the CPU."""
+    x, y = np.zeros((4, 2)), np.zeros(4)
+    for make in (tml.LogisticRegression, tml.MLP):
+        if torch.cuda.is_available():
+            make(steps=1).fit(x, y)
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make(steps=1).fit(x, y)
+        make(steps=1).fit(x, y, device="cpu")
 
 
 @pytest.mark.parametrize("task", ["classification", "regression"])
