@@ -147,9 +147,45 @@ Phases (each prints JSON lines; any failure exits non-zero):
                the first 2 layers at full width, agree with the port's CPU
                run of the same weights within 5% of the largest CPU logit,
                and their greedy tokens agree where the CPU margin is clear.
+9. lm_gemma2 (+ _check), lm_gemma2_int8 — Gemma-2 2B at full width and
+               depth (26 layers alternating a 4,096-token window and global
+               attention, soft caps 50 and 30) through the engine at
+               max_len 8192 on prompts of 113-5000 tokens (5000 passes the
+               window in the prefill; 4080 + 32 wraps the local ring), then
+               the same weights with an int8 KV cache: its launches, its
+               own checks, and for every request the greedy token after the
+               prefill and one decode step equal to the bfloat16 cache's
+               wherever the bfloat16 margin is clear; KV bytes of both.
+10. speculative, paged — ``speculative_decode`` with Gemma-2 2B as the
+               target and two drafts (the target, a 4-layer Gemma-2 from
+               another seed), k = 4, 32 tokens from a 113-token prompt,
+               against ``greedy_decode``: they may part only where the
+               target's margin is not clear; acceptance, target calls, ms a
+               token.  ``PagedKVCache`` at Gemma-2's KV shape: decode
+               attention over ``batch_gather`` bitwise equal to contiguous
+               caches, an exhausted pool raising MemoryError, pool bytes
+               against per-slot caches.
+11. lm_moe, lm_qwen3_moe — Granite-3.0-1B-A400M (24 layers, 32 experts,
+               top-8) and Qwen3-30B-A3B (128 experts, QK-norm; 12 of its 48
+               layers) through the engine on the ``lm`` prompts: launches,
+               the (token, expert) pairs dropped by capacity in a decode
+               step and a prefill, the card against the CPU through 2
+               layers (a request alone need not equal it in a batch: an
+               expert's capacity couples the batch), and for Granite two
+               card runs bitwise equal.
+12. lm_encdec, lm_vlm — seamless-m4t-large-v2 (24 + 24 layers; 256 source
+               frames, target prompts of 1-64 tokens) and Pixtral-12B (40
+               layers; 1,024 patch embeddings before 113 or 333 tokens),
+               each request prefilled alone, then 32 greedy decode steps
+               for the batch: launches (72 flash a prefill and 48 decode a
+               step for the encoder-decoder), prefill and decode-step ms,
+               peak memory, the card against the CPU through 2 (+ 2
+               encoder) layers.
+               Every phase's seconds follow it on a line of its own.
 
 Then one ``{"kernels": [...]}`` line (tree_gemm's launches split by phase
-under ``launches_by_phase``: main, service, sharded), and last ``{"ok":
+under ``launches_by_phase``: main, service, sharded; the attention
+kernels' under ``launches_by_path``), and last ``{"ok":
 true, "device": {...}}``.  The script imports nothing of JAX or of the JAX package.
 
 ``python3 chip_smoke.py --decode-cold`` runs phase 1 and only
@@ -159,6 +195,7 @@ earlier checkout times that checkout's kernel with the same timer.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import itertools
 import json
@@ -208,13 +245,43 @@ LM_PROMPT_LENS = (113, 245, 333, 402, 517, 590, 699)
 # Hymba's: past its 1,024-token window once in the prefill (1300) and once
 # while decoding (1010 + 32 new tokens wraps the ring).
 HYMBA_PROMPT_LENS = (113, 333, 517, 699, 1010, 1300)
+# Gemma-2's: past its 4,096-token window in the prefill (5000) and while
+# decoding (4080 + 32 new tokens wraps the local layers' ring).
+GEMMA2_PROMPT_LENS = (113, 699, 2048, 4080, 5000)
+# Qwen3-30B-A3B keeps 12 of its 48 layers: ~16 GB of bfloat16 weights.
+QWEN3_LAYERS = 12
 LM_REPEAT = 0
-# path -> (arch, max_len, prompt lengths, the request also served alone).
-# The recurrent families also prefill a one-token prompt.
+
+
+@dataclasses.dataclass(frozen=True)
+class LmPath:
+    """An LM path: the config, the engine's max_len, the prompt lengths,
+    the prompt of the card-vs-CPU check (and, where ``alone``, of the
+    alone-vs-batch check), the layers kept (None: all) and the KV cache's
+    dtype.  The recurrent families also prefill a one-token prompt."""
+    arch: str
+    max_len: int
+    lens: tuple
+    check: int
+    alone: bool = True
+    layers: int | None = None
+    kv: str = "bfloat16"
+
+
+# A mixture of experts drops (token, expert) pairs past an expert's
+# capacity, which depends on the whole batch (GShard; in the JAX package
+# too): one request alone need not equal it in a batch.
 LM_PATHS = {
-    "lm": ("minicpm-2b", 1024, LM_PROMPT_LENS, 2),
-    "lm_rwkv": ("rwkv6-1.6b", 1024, LM_PROMPT_LENS + (1,), 2),
-    "lm_hymba": ("hymba-1.5b", 2048, HYMBA_PROMPT_LENS + (1,), 5),
+    "lm": LmPath("minicpm-2b", 1024, LM_PROMPT_LENS, 2),
+    "lm_rwkv": LmPath("rwkv6-1.6b", 1024, LM_PROMPT_LENS + (1,), 2),
+    "lm_hymba": LmPath("hymba-1.5b", 2048, HYMBA_PROMPT_LENS + (1,), 5),
+    "lm_gemma2": LmPath("gemma2-2b", 8192, GEMMA2_PROMPT_LENS, 1),
+    "lm_gemma2_int8": LmPath("gemma2-2b", 8192, GEMMA2_PROMPT_LENS, 1,
+                             kv="int8"),
+    "lm_moe": LmPath("granite-moe-1b-a400m", 1024, LM_PROMPT_LENS, 2,
+                     alone=False),
+    "lm_qwen3_moe": LmPath("qwen3-moe-30b-a3b", 1024, LM_PROMPT_LENS[:4], 2,
+                           alone=False, layers=QWEN3_LAYERS),
 }
 LM_CHECK_LAYERS = 2   # depth of the card-vs-CPU logits check
 LM_CHECK_REL = 0.05   # its tolerance, relative to the largest CPU logit
@@ -1367,19 +1434,41 @@ DECODE_CASES = [
     ("g12", (2, 400, 24, 2, 64), None),
 ]
 # The decode shapes of the LM paths, bfloat16, at the cache lengths halfway
-# through the decode of four prompts (n + LM_NEW_TOKENS // 2): MiniCPM-2B
-# (36 heads of 64 over a cache of max_len 1024) on its first four prompts;
-# Hymba-1.5B (25 query and 5 KV heads of 64) on 517, 699, 1010 and 1300,
-# over its local layers' ring of 1024 slots (lengths clamped to it) and its
-# global layers' cache of max_len 2048.
+# through the decode of four prompts (n + LM_NEW_TOKENS // 2), and the
+# attention soft cap: MiniCPM-2B (36 heads of 64 over a cache of max_len
+# 1024) on its first four prompts; Hymba-1.5B (25 query and 5 KV heads of
+# 64) on 517, 699, 1010 and 1300, over its local layers' ring of 1024 slots
+# (lengths clamped to it) and its global layers' cache of max_len 2048;
+# Gemma-2 2B (8 query and 4 KV heads of 256, soft cap 50) on 699, 2048,
+# 4080 and 5000, over its local layers' ring of 4096 slots and its global
+# layers' cache of max_len 8192.
 _HALF = LM_NEW_TOKENS // 2
+GEMMA2_SOFTCAP = 50.0
 DECODE_PATH_SHAPES = {
     "lm": (LM_SLOTS, 1024, 36, 36, 64,
-           [n + _HALF for n in LM_PROMPT_LENS[:4]]),
+           [n + _HALF for n in LM_PROMPT_LENS[:4]], 0.0),
     "lm_hymba_local": (LM_SLOTS, 1024, 25, 5, 64,
-                       [min(n + _HALF, 1024) for n in HYMBA_PROMPT_LENS[2:]]),
+                       [min(n + _HALF, 1024) for n in HYMBA_PROMPT_LENS[2:]],
+                       0.0),
     "lm_hymba_global": (LM_SLOTS, 2048, 25, 5, 64,
-                        [n + _HALF for n in HYMBA_PROMPT_LENS[2:]]),
+                        [n + _HALF for n in HYMBA_PROMPT_LENS[2:]], 0.0),
+    "lm_gemma2_local": (LM_SLOTS, 4096, 8, 4, 256,
+                        [min(n + _HALF, 4096) for n in GEMMA2_PROMPT_LENS[1:]],
+                        GEMMA2_SOFTCAP),
+    "lm_gemma2_global": (LM_SLOTS, 8192, 8, 4, 256,
+                         [n + _HALF for n in GEMMA2_PROMPT_LENS[1:]],
+                         GEMMA2_SOFTCAP),
+}
+# The prefill shapes the flash kernel is timed at: MiniCPM-2B's longest
+# prompt (B 1, S = T = 699, 36 heads of 64, causal) and Gemma-2 2B's (S = T
+# = 5000, 8 query and 4 KV heads of 256, soft cap 50) on a local layer
+# (window 4096) and a global one: (b, s, h, kv, d, window, softcap).
+FLASH_PATH_SHAPES = {
+    "lm": (1, max(LM_PROMPT_LENS), 36, 36, 64, 0, 0.0),
+    "lm_gemma2_local": (1, max(GEMMA2_PROMPT_LENS), 8, 4, 256, 4096,
+                        GEMMA2_SOFTCAP),
+    "lm_gemma2_global": (1, max(GEMMA2_PROMPT_LENS), 8, 4, 256, 0,
+                         GEMMA2_SOFTCAP),
 }
 # A cold L2: the timed launches rotate over copies of the caches whose
 # touched bytes add up to at least twice the card's 50 MB L2, as in a
@@ -1387,11 +1476,14 @@ DECODE_PATH_SHAPES = {
 COLD_BYTES = 100e6
 
 
-def flash_bound_ms(b, s, t, h, kv, d, causal, itemsize, peak_flops):
+def flash_bound_ms(b, s, t, h, kv, d, causal, itemsize, peak_flops,
+                   window=0):
     """Least time: q, k, v read once and out written once over HBM
-    bandwidth, or 4*d flops per visible (query, key) pair over the peak for
-    the inputs' type, whichever is larger."""
-    pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
+    bandwidth, or 4*d flops per visible (query, key) pair (the last
+    ``window`` keys, where > 0) over the peak for the inputs' type,
+    whichever is larger."""
+    span = window if window > 0 else t
+    pairs = sum(min(i + 1, span, t) for i in range(s)) if causal else s * t
     flops = 4.0 * d * pairs * b * h
     nbytes = itemsize * (2 * b * s * h * d + 2 * b * t * kv * d)
     by_ops, by_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
@@ -1412,13 +1504,12 @@ def decode_bound_ms(lens, h, kv, d, itemsize, peak_flops):
 
 def phase_attention_kernels():
     """flash_attention and decode_attention against their plain versions on
-    the card over every option, then timed at the LM paths' shapes: one
-    prefill of MiniCPM-2B's longest prompt (B 1, S = T = 699, 36 heads of
-    64, bfloat16, causal) and a decode step at each of
-    ``DECODE_PATH_SHAPES`` with a cold L2; decode_attention captured in a
-    CUDA graph must replay bitwise equal to an eager call."""
+    the card over every option, then timed at the LM paths' shapes: a
+    prefill at each of ``FLASH_PATH_SHAPES`` (MiniCPM-2B's longest prompt,
+    Gemma-2 2B's on a local and a global layer) and a decode step at each
+    of ``DECODE_PATH_SHAPES`` with a cold L2; decode_attention captured in
+    a CUDA graph must replay bitwise equal to an eager call."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops as d_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -1489,39 +1580,20 @@ def phase_attention_kernels():
                 worst["decode_attention"] = max(worst["decode_attention"],
                                                 err)
 
-    # Flash attention timed at MiniCPM-2B's prefill (36 heads of 64, MHA).
-    # Device times: q, k, v and out (12.9 MB) stay warm in L2 between the
-    # back-to-back launches, for the kernel and for SDPA alike.
-    from repro_torch.kernels.flash_attention.flash_attention import \
-        flash_attention_cuda
-    bf16 = torch.bfloat16
-    s = max(LM_PROMPT_LENS)
-    q, k, v = (randn((1, s, 36, 64), bf16) for _ in range(3))
-    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    err = float((f_ops.flash_attention(q, k, v).float()
-                 - attention_ref(q, k, v).float()).abs().max())
-    if err > ATT_TOL["bfloat16"]:
-        fail(f"flash_attention at the engine's shape differs by {err}")
-    bound, by = flash_bound_ms(1, s, s, 36, 36, 64, True, 2, PEAK_BF16_FLOPS)
-    out = torch.empty_like(q)
-    dev_ms = device_ms(
-        lambda: flash_attention_cuda(q, k, v, out, True, 0, 0.0))
+    frows = {name: flash_timing_row(f_ops, name, gen)
+             for name in FLASH_PATH_SHAPES}
     flash_row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:113",
-        "max_abs_err": max(worst["flash_attention"], err),
-        "ms": cuda_ms(lambda: f_ops.flash_attention(q, k, v), runs=20),
-        "device_ms": dev_ms,
-        "plain_ms": cuda_ms(lambda: attention_ref(q, k, v)),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True, enable_gqa=True), runs=20),
-        "library_device_ms": device_ms(
-            lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True, enable_gqa=True))}
-    emit({"phase": "kernels", "kernel": "flash_attention",
-          "timing": flash_row, "q": [1, s, 36, 64], "dtype": "bfloat16"})
+        "max_abs_err": max([worst["flash_attention"]]
+                           + [r["max_abs_err"] for r in frows.values()]),
+        # the headline numbers are MiniCPM-2B's; every path shape's row
+        # is in by_shape
+        **{k: frows["lm"][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")},
+        "by_shape": frows}
 
     check_decode_graph(gen)
     rows = {name: decode_cold_row(d_ops, name, gen)
@@ -1542,6 +1614,64 @@ def phase_attention_kernels():
     return flash_row, decode_row
 
 
+def flash_timing_row(f_ops, name, gen) -> dict:
+    """``f_ops.flash_attention`` at the prefill shape ``name`` of
+    ``FLASH_PATH_SHAPES`` (bfloat16, causal) against its plain version,
+    then timed: ``device_ms`` is the profiler's device time of the bound C
+    entry point over 50 launches (q, k, v and out stay warm in L2: 12.9 MB
+    for MiniCPM-2B, 30.7 MB for Gemma-2 2B), ``library_device_ms`` SDPA's
+    on [B,H,S,D] copies, causal or with the window as a boolean mask.  SDPA
+    has no soft cap: on Gemma-2's shapes it computes the function without
+    it, a yardstick and not the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    b, s, h, kv, d, window, cap = FLASH_PATH_SHAPES[name]
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(bf16)
+    k, v = (torch.randn((b, s, kv, d), generator=gen, device=dev).to(bf16)
+            for _ in range(2))
+    err = float((f_ops.flash_attention(q, k, v, True, window, cap).float()
+                 - attention_ref(q, k, v, True, window, cap).float())
+                .abs().max())
+    if err > ATT_TOL["bfloat16"]:
+        fail(f"flash_attention at the {name} shape differs by {err}")
+    bound, by = flash_bound_ms(b, s, s, h, kv, d, True, 2, PEAK_BF16_FLOPS,
+                               window)
+    out = torch.empty_like(q)
+    dev_ms = device_ms(
+        lambda: flash_attention_cuda(q, k, v, out, True, window, cap))
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if window > 0:
+        diff = torch.arange(s, device=dev)[:, None] \
+            - torch.arange(s, device=dev)[None, :]
+        mask = (diff >= 0) & (diff < window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=True)
+    else:
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True)
+    row = {"shape": name, "q": [b, s, h, d], "kv": [b, s, kv, d],
+           "window": window, "softcap": cap, "dtype": "bfloat16",
+           "max_abs_err": err, "device_ms": dev_ms,
+           "ms": cuda_ms(lambda: f_ops.flash_attention(q, k, v, True, window,
+                                                       cap), runs=20),
+           "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, True, window,
+                                                     cap)),
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": cuda_ms(sdpa, runs=20),
+           "library_device_ms": device_ms(sdpa),
+           "library_softcap": cap == 0}
+    emit({"phase": "kernels", "kernel": "flash_attention", "timing": row})
+    return row
+
+
 def _rotate(calls):
     """One callable that runs ``calls`` in turn, one a call."""
     turn = itertools.cycle(calls)
@@ -1555,14 +1685,15 @@ def decode_cold_row(d_ops, name, gen) -> dict:
     device time of DEVICE_RUNS wrapper calls, / DEVICE_RUNS, rotating over
     enough copies of the caches that the slots they read add up to
     COLD_BYTES; ``library_device_ms`` is masked SDPA over [B,H,T,D] copies
-    of the same caches, rotated alike.  ``ms`` (one wrapper call, host
-    time included), ``plain_ms`` and ``library_ms`` are warm."""
+    of the same caches, rotated alike (SDPA has no soft cap: at Gemma-2's
+    shapes it computes the function without it).  ``ms`` (one wrapper
+    call, host time included), ``plain_ms`` and ``library_ms`` are warm."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    b, t, h, kv, d, lens = DECODE_PATH_SHAPES[name]
+    b, t, h, kv, d, lens, cap = DECODE_PATH_SHAPES[name]
 
     def randn(shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf16)
@@ -1574,18 +1705,20 @@ def decode_cold_row(d_ops, name, gen) -> dict:
               for _ in range(copies)]
     cache_len = torch.tensor(lens, dtype=torch.int32, device=dev)
     kc, vc = caches[0]
-    err = float((d_ops.decode_attention(q, kc, vc, cache_len).float()
-                 - decode_attention_ref(q, kc, vc, cache_len).float())
+    err = float((d_ops.decode_attention(q, kc, vc, cache_len, cap).float()
+                 - decode_attention_ref(q, kc, vc, cache_len, cap).float())
                 .abs().max())
     if err > ATT_TOL["bfloat16"]:
         fail(f"decode_attention at the {name} shape differs by {err}")
     passes = {}
     dev_ms = device_ms(_rotate([
-        lambda kc=kc, vc=vc: d_ops.decode_attention(q, kc, vc, cache_len)
+        lambda kc=kc, vc=vc: d_ops.decode_attention(q, kc, vc, cache_len,
+                                                    cap)
         for kc, vc in caches]), by_kernel=passes)
-    ms = cuda_ms(lambda: d_ops.decode_attention(q, kc, vc, cache_len),
+    ms = cuda_ms(lambda: d_ops.decode_attention(q, kc, vc, cache_len, cap),
                  runs=20)
-    plain_ms = cuda_ms(lambda: decode_attention_ref(q, kc, vc, cache_len))
+    plain_ms = cuda_ms(lambda: decode_attention_ref(q, kc, vc, cache_len,
+                                                    cap))
 
     qh = q.transpose(1, 2).contiguous()
     mask = (torch.arange(t, device=dev)[None, :]
@@ -1601,7 +1734,8 @@ def decode_cold_row(d_ops, name, gen) -> dict:
                                  for kh, vh in heads]))
     bound, by = decode_bound_ms(lens, h, kv, d, 2, PEAK_BF16_FLOPS)
     row = {"shape": name, "q": [b, 1, h, d], "cache": [b, t, kv, d],
-           "cache_len": list(lens), "dtype": "bfloat16", "max_abs_err": err,
+           "cache_len": list(lens), "softcap": cap, "dtype": "bfloat16",
+           "max_abs_err": err,
            "device_ms": dev_ms, "device_ms_by_pass": passes, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_device_ms": lib_dev,
@@ -1620,7 +1754,7 @@ def check_decode_graph(gen) -> None:
     from repro_torch.kernels.decode_attention import ops as d_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    b, t, h, kv, d, lens = DECODE_PATH_SHAPES["lm_hymba_local"]
+    b, t, h, kv, d, lens, _ = DECODE_PATH_SHAPES["lm_hymba_local"]
 
     def randn(shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf16)
@@ -1855,7 +1989,7 @@ def phase_scan_kernels():
     return wkv_row, ssd_row
 
 
-# -- phases 6 and 7: the LM paths ---------------------------------------------
+# -- phases 7-12: the LM paths ------------------------------------------------
 
 def lm_prompts(vocab, lens):
     """Prompts of the given lengths from the seed, plus a repeat of the
@@ -1899,6 +2033,21 @@ def lm_kernel_ops():
             "rwkv6_scan": w_ops, "ssd_scan": s_ops}
 
 
+def zero_launches() -> None:
+    """Every kernel's launch count to 0: a path's counts start here."""
+    for mod in lm_kernel_ops().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: mod.launches for k, mod in lm_kernel_ops().items()}
+
+
+def check_launches(name, launches, want, what) -> None:
+    if launches != want:
+        fail(f"{name}: kernel launches {launches}, expected {want} ({what})")
+
+
 def expected_launches(cfg, eng):
     """One launch a layer per prefill (flash attention, and the scan of the
     family) and per decode step (decode attention); RWKV-6 has no
@@ -1915,42 +2064,71 @@ def expected_launches(cfg, eng):
     return want
 
 
-def phase_lm(name):
-    """One LM path at full width through InferenceEngine; every kernel's
-    launch count is zeroed just before the engine runs and read just
-    after."""
+def build_lm(arch, layers=None, kv="bfloat16", seed=LM_SEED, params=None):
+    """``arch`` at full width (``layers`` of its depth where given) on the
+    card with random bfloat16 weights from ``seed`` (or ``params``) ->
+    (config, model, params, the depth cut or None)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    arch, max_len, lens, _ = LM_PATHS[name]
     cfg = get_config(arch)
-    t0 = time.perf_counter()
-    model = build_model(cfg, device="cuda", param_dtype=torch.bfloat16)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(LM_SEED)
-    params = model.init_params(gen)
-    torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(params))
-    emit({"phase": name, "step": "init", "arch": arch,
-          "layers": cfg.n_layers, "d_model": cfg.d_model,
-          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
-          "d_head": cfg.d_head, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+    reduced = None
+    if layers is not None:
+        reduced = f"{layers} of {cfg.n_layers} layers"
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = build_model(cfg, device="cuda", param_dtype=torch.bfloat16,
+                        kv_cache_dtype=getattr(torch, kv))
+    if params is None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        params = model.init_params(gen)
+        torch.cuda.synchronize()
+    return cfg, model, params, reduced
+
+
+def emit_init(name, cfg, params, reduced, kv, seconds) -> None:
+    emit({"phase": name, "step": "init", "arch": cfg.name,
+          "layers": cfg.n_layers, "reduced": reduced,
+          "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "kv_heads": cfg.n_kv_heads, "d_head": cfg.d_head,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
           "attention": cfg.attention, "window": cfg.window_size,
           "global_layers": list(cfg.global_layers),
-          "ssm_state": cfg.ssm_state, "params": n_params,
-          "param_dtype": "bfloat16", "seconds": time.perf_counter() - t0})
-    prompts = lm_prompts(cfg.vocab_size, lens)
+          "global_every": cfg.global_every,
+          "softcaps": [cfg.attn_softcap, cfg.final_softcap],
+          "experts": [cfg.n_experts, cfg.experts_per_token],
+          "encoder_layers": cfg.n_encoder_layers,
+          "frontend": cfg.frontend, "ssm_state": cfg.ssm_state,
+          "params": sum(x.numel() for x in _leaves(params)),
+          "param_dtype": "bfloat16", "kv_cache_dtype": kv,
+          "seconds": seconds})
 
-    ops = lm_kernel_ops()
+
+def cache_bytes(cache) -> int:
+    return sum(x.nbytes for x in _leaves(cache))
+
+
+def phase_lm(name, params=None):
+    """One LM path at full width through InferenceEngine; every kernel's
+    launch count is zeroed just before the engine runs and read just
+    after.  ``params`` reuses another path's weights.  -> (launches, the
+    path's model, weights, prompts, engine and completed requests)."""
+    import torch
+    path = LM_PATHS[name]
+    t0 = time.perf_counter()
+    cfg, model, params, reduced = build_lm(path.arch, path.layers, path.kv,
+                                           params=params)
+    emit_init(name, cfg, params, reduced, path.kv, time.perf_counter() - t0)
+    prompts = lm_prompts(cfg.vocab_size, path.lens)
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for mod in ops.values():                   # the path's counts from here
-        mod.launches = 0
+    zero_launches()                            # the path's counts from here
     t0 = time.perf_counter()
-    eng, steps = serve(model, params, prompts, max_len)
+    eng, steps = serve(model, params, prompts, path.max_len)
     wall = time.perf_counter() - t0
-    launches = {k: mod.launches for k, mod in ops.items()}
+    launches = read_launches()
     done = sorted(eng.completed, key=lambda r: r.rid)
     if len(done) != len(prompts) or any(
             len(r.output) != LM_NEW_TOKENS for r in done):
@@ -1961,17 +2139,15 @@ def phase_lm(name):
     if eng.prefills != len(prompts) - 1:
         fail(f"{name}: {eng.prefills} prefills for {len(prompts)} requests, "
              f"one of which repeats a prompt")
-    want = expected_launches(cfg, eng)
-    if launches != want:
-        fail(f"{name}: kernel launches {launches}, expected {want} "
-             f"({eng.prefills} prefills, {eng.decode_steps} decode steps, "
-             f"{cfg.n_layers} layers)")
+    check_launches(name, launches, expected_launches(cfg, eng),
+                   f"{eng.prefills} prefills, {eng.decode_steps} decode "
+                   f"steps, {cfg.n_layers} layers")
     decode_only = [st["ms"] for st in steps if st["admitted"] == 0]
     tokens = sum(len(r.output) for r in done)
     emit({"phase": name, "step": "serve", "requests": len(done),
           "prompt_lens": [len(p) for p in prompts],
           "new_tokens": LM_NEW_TOKENS, "slots": LM_SLOTS,
-          "max_len": max_len, "prefills": eng.prefills,
+          "max_len": path.max_len, "prefills": eng.prefills,
           "decode_steps": eng.decode_steps, "engine_steps": len(steps),
           "launches": launches, "wall_s": wall,
           "tokens_per_s": tokens / wall,
@@ -1979,21 +2155,29 @@ def phase_lm(name):
           "decode_step_ms": decode_only,
           "ttft_ms": [(r.first_token_at - r.submitted_at) * 1e3
                       for r in done],
+          "kv_cache_bytes": cache_bytes(eng.cache["layers"]),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
     profile_decode(name, model, params, eng.cache,
                    statistics.median(decode_only))
+    if cfg.n_experts:
+        moe_routing(name, cfg, model, params, eng.cache,
+                    prompts[path.check], path.max_len)
 
     # Per-request prefill time, measured alone after the counted run.
     prefill_ms = []
     for p in prompts[:-1]:
         tok = torch.as_tensor(p, device="cuda")[None]
         prefill_ms.append(cuda_ms(lambda: model.prefill(
-            params, tok, max_len=max_len), warmup=1, runs=3))
-    emit({"phase": name, "step": "prefill", "prompt_lens": list(lens),
+            params, tok, max_len=path.max_len), warmup=1, runs=3))
+    emit({"phase": name, "step": "prefill", "prompt_lens": list(path.lens),
           "prefill_ms": prefill_ms})
     phase_lm_check(name, cfg, model, params, prompts, done)
-    return launches
+    ctx = {"cfg": cfg, "model": model, "params": params, "prompts": prompts,
+           "done": done, "decode_step_ms_median":
+               statistics.median(decode_only),
+           "kv_cache_bytes": cache_bytes(eng.cache["layers"])}
+    return launches, ctx
 
 
 def profile_decode(name, model, params, cache, step_ms, steps=3):
@@ -2032,6 +2216,34 @@ def profile_decode(name, model, params, cache, step_ms, steps=3):
           "top_kernels_ms": [[n[:80], ms] for n, ms in top]})
 
 
+def moe_routing(name, cfg, model, params, cache, prompt, max_len) -> None:
+    """The (token, expert) pairs routed and dropped by capacity over every
+    MoE layer: in one decode step of the engine's batch, and in the prefill
+    of one prompt."""
+    import torch
+
+    from repro_torch.models.moe import _capacity
+    b = cache["len"].shape[0]
+    model.moe_counts = {}
+    model.decode_step(params, cache, torch.zeros((b, 1), dtype=torch.int32,
+                                                 device="cuda"))
+    step = {k: int(v) for k, v in model.moe_counts.items()}
+    model.moe_counts = {}
+    model.prefill(params, torch.as_tensor(prompt, device="cuda")[None],
+                  max_len=max_len)
+    pre = {k: int(v) for k, v in model.moe_counts.items()}
+    model.moe_counts = None
+    emit({"phase": name, "step": "moe_routing", "moe_layers": cfg.n_layers,
+          "experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+          "decode_tokens": b, "decode_capacity": _capacity(cfg, b, 2.0),
+          "decode_step_pairs_routed": step["routed"],
+          "decode_step_pairs_dropped": step["dropped"],
+          "prefill_tokens": len(prompt),
+          "prefill_capacity": _capacity(cfg, len(prompt), 2.0),
+          "prefill_pairs_routed": pre["routed"],
+          "prefill_pairs_dropped": pre["dropped"]})
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2051,45 +2263,43 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def phase_lm_check(name, cfg, model, params, prompts, done):
-    """Slot isolation on the card, and the card against the CPU."""
-    import dataclasses
+def top1_clear(logits, scale):
+    """The LM_CHECK_REL rule: each row's top-1 margin over twice
+    LM_CHECK_REL of ``scale`` -> bool [rows]."""
+    import torch
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return top2[:, 0] - top2[:, 1] > 2 * LM_CHECK_REL * scale
 
+
+def card_vs_cpu(name, small, sub, tok, **inputs) -> None:
+    """``small`` (the path's config cut to a few layers at full width) with
+    the path's first layers ``sub``: its prefill logits on the card against
+    the port's CPU run of the same weights and inputs, within LM_CHECK_REL
+    of the largest CPU logit, the greedy token equal where the CPU margin
+    is clear."""
     import torch
 
     from repro_torch.models import build_model
-    _, max_len, _, alone_i = LM_PATHS[name]
-    eng, _ = serve(model, params, [prompts[alone_i]], max_len)
-    alone = eng.completed[0].output
-    batched = done[alone_i].output
-    emit({"phase": f"{name}_check", "request": alone_i,
-          "prompt_len": len(prompts[alone_i]),
-          "alone_equals_batched": alone == batched})
-    if alone != batched:
-        fail(f"{name}: request {alone_i} alone gave {alone}, in the batch "
-             f"{batched}")
-
-    small = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
-    sub = dict(params, layers=params["layers"][:LM_CHECK_LAYERS])
-    tok = torch.as_tensor(prompts[alone_i])[None]
+    cuda = {k: v.cuda() for k, v in inputs.items()}
     card, _ = build_model(small, device="cuda",
-                          param_dtype=torch.bfloat16).prefill(sub, tok)
+                          param_dtype=torch.bfloat16).prefill(
+        sub, tok.cuda(), **cuda)
     t0 = time.perf_counter()
     cpu, _ = build_model(small, device="cpu",
                          param_dtype=torch.bfloat16).prefill(
-        _to(sub, "cpu"), tok)
+        _to(sub, "cpu"), tok, **inputs)
     cpu_s = time.perf_counter() - t0
-    v = cfg.vocab_size
+    v = small.vocab_size
     card, cpu = card.cpu()[:, :v], cpu[:, :v]
     if not torch.isfinite(card).all():
         fail(f"{name}: card prefill logits are not finite")
     scale = float(cpu.abs().max())
     err = float((card - cpu).abs().max())
     tol = LM_CHECK_REL * scale
-    top2 = torch.topk(cpu, 2, dim=-1).values
-    clear = bool((top2[:, 0] - top2[:, 1] > 2 * tol).all())
+    clear = bool(top1_clear(cpu, scale).all())
     same_top1 = bool((card.argmax(-1) == cpu.argmax(-1)).all())
-    emit({"phase": f"{name}_check", "layers": LM_CHECK_LAYERS,
+    emit({"phase": f"{name}_check", "layers": small.n_layers,
+          "encoder_layers": small.n_encoder_layers,
           "prompt_len": int(tok.shape[1]), "max_abs_err": err,
           "cpu_logit_scale": scale, "tol": tol, "top1_clear": clear,
           "same_top1": same_top1, "cpu_seconds": cpu_s})
@@ -2101,21 +2311,477 @@ def phase_lm_check(name, cfg, model, params, prompts, done):
              f"the CPU margin is clear")
 
 
+def phase_lm_check(name, cfg, model, params, prompts, done):
+    """Slot isolation on the card (where the family has it), and the card
+    against the CPU through the first LM_CHECK_LAYERS layers."""
+    import torch
+    path = LM_PATHS[name]
+    i = path.check
+    if path.alone:
+        eng, _ = serve(model, params, [prompts[i]], path.max_len)
+        alone = eng.completed[0].output
+        batched = done[i].output
+        emit({"phase": f"{name}_check", "request": i,
+              "prompt_len": len(prompts[i]),
+              "alone_equals_batched": alone == batched})
+        if alone != batched:
+            fail(f"{name}: request {i} alone gave {alone}, in the batch "
+                 f"{batched}")
+    else:
+        emit({"phase": f"{name}_check", "request": i,
+              "alone_equals_batched": None,
+              "why": "not applicable: an expert keeps at most its capacity "
+                     "of the batch's tokens (GShard, as in the JAX "
+                     "package), so a request's output depends on its "
+                     "batch"})
+    small = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    sub = dict(params, layers=params["layers"][:LM_CHECK_LAYERS])
+    card_vs_cpu(name, small, sub, torch.as_tensor(prompts[i])[None])
+
+
+def moe_repeat(name, model, params, prompts, done) -> None:
+    """Two card runs bitwise equal: the prefill logits and one decode step
+    of a prompt, each twice, and the whole engine run again (every
+    request's tokens equal)."""
+    import torch
+    path = LM_PATHS[name]
+    tok = torch.as_tensor(prompts[path.check], device="cuda")[None]
+    runs = []
+    for _ in range(2):
+        logits, cache = model.prefill(params, tok, max_len=path.max_len)
+        nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+        step, _ = model.decode_step(params, cache, nxt)
+        runs.append((logits, step))
+    prefill_equal = torch.equal(runs[0][0], runs[1][0])
+    decode_equal = torch.equal(runs[0][1], runs[1][1])
+    eng, _ = serve(model, params, prompts, path.max_len)
+    again = sorted(eng.completed, key=lambda r: r.rid)
+    tokens_equal = [a.output == b.output for a, b in zip(again, done)]
+    emit({"phase": f"{name}_check", "step": "repeat",
+          "prefill_logits_bitwise": prefill_equal,
+          "decode_logits_bitwise": decode_equal,
+          "engine_tokens_equal": tokens_equal})
+    if not (prefill_equal and decode_equal and all(tokens_equal)):
+        fail(f"{name}: two card runs differ (prefill {prefill_equal}, "
+             f"decode {decode_equal}, engine {tokens_equal})")
+
+
+def gemma2_int8_vs_bf16(g16, g8) -> None:
+    """For every request, the greedy token after the prefill and after one
+    decode step of the int8-cache model against the bfloat16 one's: the
+    prefill logits bitwise equal (the cache's dtype enters after them),
+    the decode step's token equal wherever the bfloat16 top-1 margin is
+    clear by the LM_CHECK_REL rule; the KV bytes of the engine's caches
+    and the decode-step ms of both runs."""
+    import torch
+    name = "lm_gemma2_int8"
+    path = LM_PATHS[name]
+    v = g16["cfg"].vocab_size
+    params = g16["params"]
+    rows = []
+    for i, p in enumerate(g16["prompts"][:-1]):
+        tok = torch.as_tensor(p, device="cuda")[None]
+        l16, c16 = g16["model"].prefill(params, tok, max_len=path.max_len)
+        l8, c8 = g8["model"].prefill(params, tok, max_len=path.max_len)
+        if not torch.equal(l16, l8):
+            fail(f"{name}: request {i}'s prefill logits differ from the "
+                 f"bfloat16 model's")
+        nxt = l16.argmax(-1, keepdim=True).to(torch.int32)
+        d16, _ = g16["model"].decode_step(params, c16, nxt)
+        d8, _ = g8["model"].decode_step(params, c8, nxt)
+        a, b = d16.cpu()[:, :v], d8.cpu()[:, :v]
+        scale = float(a.abs().max())
+        clear = bool(top1_clear(a, scale).all())
+        same = bool((a.argmax(-1) == b.argmax(-1)).all())
+        rows.append({"request": i, "prompt_len": len(p),
+                     "max_abs_err": float((a - b).abs().max()),
+                     "logit_scale": scale, "top1_clear": clear,
+                     "same_top1": same})
+        if clear and not same:
+            fail(f"{name}: request {i}'s greedy token after one decode "
+                 f"step differs from the bfloat16 cache's where its margin "
+                 f"is clear")
+    emit({"phase": f"{name}_check", "step": "vs_bf16", "requests": rows,
+          "kv_cache_bytes_int8": g8["kv_cache_bytes"],
+          "kv_cache_bytes_bf16": g16["kv_cache_bytes"],
+          "kv_bytes_ratio": g8["kv_cache_bytes"] / g16["kv_cache_bytes"],
+          "decode_step_ms_median_int8": g8["decode_step_ms_median"],
+          "decode_step_ms_median_bf16": g16["decode_step_ms_median"],
+          "engine_outputs_equal_bf16": [
+              a.output == b.output for a, b in zip(g8["done"],
+                                                    g16["done"])]})
+
+
+SPEC_PROMPT, SPEC_K, SPEC_DRAFT_LAYERS = 113, 4, 4
+
+
+def phase_speculative(g16):
+    """Speculative decoding with Gemma-2 2B (full depth) as the target and
+    two drafts, the target itself and a 4-layer Gemma-2 at full width from
+    another seed: k = 4, LM_NEW_TOKENS tokens from a 113-token prompt.
+    Each output equals ``greedy_decode`` of the target up to a position
+    where they part, and they may part only where the target's top-1
+    margin (along the greedy continuation) is not clear by the
+    LM_CHECK_REL rule: cuBLAS picks its kernels by the row count, so a
+    forward over n tokens and one over n + k can round the last bits
+    apart.  Launches: the target's full forwards and the drafts' prefills
+    (flash), the drafts' decode steps (decode)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import greedy_decode, speculative_decode
+    from repro_torch.serve.speculative import _full_forward_logits
+    name = "speculative"
+    cfg, target, params = g16["cfg"], g16["model"], g16["params"]
+    dcfg, draft, dparams, reduced = build_lm(cfg.name, SPEC_DRAFT_LAYERS,
+                                             seed=LM_SEED + 1)
+    prompt = lm_prompts(cfg.vocab_size, (SPEC_PROMPT,))[0]
+    n = LM_NEW_TOKENS
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = greedy_decode(target, params, prompt, n)
+    greedy_s = time.perf_counter() - t0
+    total = read_launches()
+    check_launches(name, total, {**dict.fromkeys(total, 0),
+                                 "flash_attention": cfg.n_layers * n},
+                   f"greedy: {n} full forwards")
+    seq = np.concatenate([prompt, np.asarray(ref, np.int32)])
+    rows = _full_forward_logits(target, params, seq)[
+        len(prompt) - 1:len(prompt) - 1 + n, :cfg.vocab_size].float().cpu()
+    clear = top1_clear(rows, rows.abs().amax(-1)).tolist()
+    emit({"phase": name, "step": "greedy", "prompt_len": len(prompt),
+          "tokens": n, "ms_per_token": greedy_s * 1e3 / n,
+          "clear_positions": sum(clear), "distinct_tokens": len(set(ref)),
+          "repeats_previous_token": sum(
+              int(t == p) for t, p in zip(ref, [int(prompt[-1])] + ref)),
+          "draft_reduced": reduced})
+    for dname, (dm, dp, layers) in {
+            "self": (target, params, cfg.n_layers),
+            f"gemma2_{SPEC_DRAFT_LAYERS}_layers": (draft, dparams,
+                                                   dcfg.n_layers)}.items():
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, stats = speculative_decode(target, params, dm, dp, prompt, n,
+                                        k=SPEC_K)
+        secs = time.perf_counter() - t0
+        got = read_launches()
+        rounds = stats.target_calls
+        check_launches(name, got, {
+            **dict.fromkeys(got, 0),
+            "flash_attention": (cfg.n_layers + layers) * rounds,
+            "decode_attention": layers * (stats.draft_calls - rounds)},
+            f"{rounds} rounds, {stats.draft_calls} draft calls")
+        total = {k: total[k] + got[k] for k in total}
+        parted = next((i for i in range(n) if out[i] != ref[i]), None)
+        emit({"phase": name, "step": "speculative", "draft": dname,
+              "draft_layers": layers, "k": SPEC_K,
+              "acceptance_rate": stats.acceptance_rate,
+              "proposed": stats.proposed, "accepted": stats.accepted,
+              "target_calls": stats.target_calls,
+              "draft_calls": stats.draft_calls, "launches": got,
+              "ms_per_token": secs * 1e3 / n,
+              "greedy_ms_per_token": greedy_s * 1e3 / n,
+              "equal_to_greedy": out == ref, "parted_at": parted,
+              "margin_clear_there": None if parted is None
+              else clear[parted]})
+        if len(out) != n or (parted is not None and clear[parted]):
+            fail(f"{name}: draft {dname}'s output parts from greedy at "
+                 f"{parted}, where the target's margin is clear")
+    return total
+
+
+PAGED_LENS, PAGED_BLOCK, PAGED_STEPS = (1, 517, 1300, 2000), 16, 8
+
+
+def phase_paged():
+    """``PagedKVCache`` at Gemma-2 2B's KV shape (4 heads of 256, bfloat16):
+    four sequences of 1-2,000 tokens appended interleaved into one pool of
+    16-slot blocks, then PAGED_STEPS decode steps, each appending one token
+    to every sequence and running decode_attention (soft cap 50) over
+    ``batch_gather``, bitwise equal to it over contiguous caches holding
+    the same tokens; an exhausted pool raises MemoryError; the pool's bytes
+    against per-slot caches of Gemma-2's max_len."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as d_ops
+    from repro_torch.serve import PagedKVCache
+    name = "paged"
+    h, kv, d = 8, 4, 256
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(LM_SEED)
+    need = [-(-(n + PAGED_STEPS) // PAGED_BLOCK) for n in PAGED_LENS]
+    pools = [PagedKVCache(sum(need), PAGED_BLOCK, kv, d, max(need),
+                          device=dev) for _ in range(2)]
+    t = max(need) * PAGED_BLOCK
+    flat = [torch.zeros((len(PAGED_LENS), t, kv, d), dtype=bf16, device=dev)
+            for _ in range(2)]
+    tokens = [torch.randn((n + PAGED_STEPS, 2, kv, d), generator=gen,
+                          device=dev).to(bf16) for n in PAGED_LENS]
+    pos = [0] * len(PAGED_LENS)
+
+    def append(i):
+        for pool, cache, which in zip(pools, flat, (0, 1)):
+            if i not in pool.tables:
+                pool.allocate(i)
+            pool.append(i, tokens[i][pos[i], which])
+            cache[i, pos[i]] = tokens[i][pos[i], which]
+        pos[i] += 1
+
+    order = [i for i, n in enumerate(PAGED_LENS) for _ in range(n)]
+    perm = torch.randperm(len(order), generator=torch.Generator()
+                          .manual_seed(LM_SEED))
+    t0 = time.perf_counter()
+    for j in perm.tolist():
+        append(order[j])
+    torch.cuda.synchronize()
+    append_s = time.perf_counter() - t0
+    zero_launches()
+    equal, sids = [], list(range(len(PAGED_LENS)))
+    for _ in range(PAGED_STEPS):
+        for i in sids:
+            append(i)
+        (pk, lens), (pv, _) = (pool.batch_gather(sids) for pool in pools)
+        q = torch.randn((len(sids), 1, h, d), generator=gen,
+                        device=dev).to(bf16)
+        paged = d_ops.decode_attention(q, pk, pv, lens, GEMMA2_SOFTCAP)
+        contiguous = d_ops.decode_attention(q, *flat, lens, GEMMA2_SOFTCAP)
+        equal.append(bool(torch.equal(paged, contiguous)))
+    launches = read_launches()
+    check_launches(name, launches, {**dict.fromkeys(launches, 0),
+                                    "decode_attention": 2 * PAGED_STEPS},
+                   f"{PAGED_STEPS} steps, paged and contiguous")
+    small = PagedKVCache(2, PAGED_BLOCK, kv, d, 4, device=dev)
+    small.allocate(0)
+    try:
+        for _ in range(2 * PAGED_BLOCK + 1):
+            small.append(0, tokens[0][0, 0])
+        exhausted = False
+    except MemoryError:
+        exhausted = True
+    pool_bytes = sum(p.pool.nbytes for p in pools)
+    per_slot = 2 * LM_SLOTS * LM_PATHS["lm_gemma2"].max_len * kv * d * 2
+    emit({"phase": name, "kv": [kv, d], "block": PAGED_BLOCK,
+          "lengths": [n + PAGED_STEPS for n in PAGED_LENS],
+          "blocks": sum(need), "append_s": append_s,
+          "steps_bitwise_equal": equal, "exhausted_raises": exhausted,
+          "pool_bytes_per_layer": pool_bytes,
+          "per_slot_bytes_per_layer": per_slot,
+          "pool_over_per_slot": pool_bytes / per_slot,
+          "launches": launches})
+    if not all(equal):
+        fail(f"{name}: decode attention over the paged gather differs from "
+             f"contiguous caches at steps {equal}")
+    if not exhausted:
+        fail(f"{name}: an exhausted pool did not raise MemoryError")
+    return launches
+
+
+def batch_caches(caches):
+    """Decode caches of single requests -> one batched cache (rows in
+    order; each keeps its own length)."""
+    import torch
+    out = {"len": torch.cat([c["len"] for c in caches]),
+           "layers": [{k: torch.cat([c["layers"][i][k] for c in caches])
+                       for k in layer}
+                      for i, layer in enumerate(caches[0]["layers"])]}
+    if "enc_out" in caches[0]:
+        out["enc_out"] = torch.cat([c["enc_out"] for c in caches])
+    return out
+
+
+def prefill_then_decode(name, cfg, model, params, prompts, max_len,
+                        inputs):
+    """Each request's prefill alone (its own length and inputs), the
+    caches batched, then LM_NEW_TOKENS greedy decode steps for the batch
+    -> (tokens [B, LM_NEW_TOKENS + 1], prefill ms, decode step ms, the
+    batch's cache)."""
+    import torch
+    caches, first, prefill_ms = [], [], []
+    for i, p in enumerate(prompts):
+        kw = {k: v[i:i + 1] for k, v in inputs.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(
+            params, torch.as_tensor(p, device="cuda")[None],
+            max_len=max_len, **kw)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(logits[:, :cfg.vocab_size]).all():
+            fail(f"{name}: request {i}'s prefill logits are not finite")
+        caches.append(cache)
+        first.append(logits.argmax(-1))
+    cache = batch_caches(caches)
+    del caches
+    out = [torch.stack(first, 0).to(torch.int32)]          # [B, 1]
+    step_ms = []
+    for _ in range(LM_NEW_TOKENS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, out[-1])
+        out.append(logits.argmax(-1, keepdim=True).to(torch.int32))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(logits[:, :cfg.vocab_size]).all():
+            fail(f"{name}: decode logits are not finite")
+    tokens = torch.cat(out, 1).cpu()
+    if not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        fail(f"{name}: a generated token lies outside the vocabulary")
+    return tokens, prefill_ms, step_ms, cache
+
+
+ENCDEC_MAX_LEN, ENCDEC_TARGET_LENS = 1024, (1, 17, 40, 64)
+
+
+def phase_encdec():
+    """seamless-m4t-large-v2 at full width and depth (24 encoder and 24
+    decoder layers): 4 requests, each 256 seeded source frames
+    (encoder_len_ratio 0.25 of max_len 1024) and a target prompt of 1-64
+    tokens, each prefilled alone, then LM_NEW_TOKENS greedy decode
+    steps for the batch.  Launches: flash 72 a prefill (the encoder's
+    bidirectional self-attention, the decoder's causal one, its
+    cross-attention), decode 48 a step (self and cross); then the card
+    against the CPU through 2 + 2 layers."""
+    import torch
+    name = "lm_encdec"
+    t0 = time.perf_counter()
+    cfg, model, params, reduced = build_lm("seamless-m4t-large-v2")
+    emit_init(name, cfg, params, reduced, "bfloat16",
+              time.perf_counter() - t0)
+    src_len = int(ENCDEC_MAX_LEN * cfg.encoder_len_ratio)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM_SEED + 2)
+    src = (0.1 * torch.randn((len(ENCDEC_TARGET_LENS), src_len, cfg.d_model),
+                             generator=gen, device="cuda")).to(torch.bfloat16)
+    prompts = lm_prompts(cfg.vocab_size, ENCDEC_TARGET_LENS)[:-1]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    tokens, prefill_ms, step_ms, cache = prefill_then_decode(
+        name, cfg, model, params, prompts, ENCDEC_MAX_LEN,
+        {"src_embeds": src})
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    b, steps = len(prompts), LM_NEW_TOKENS
+    check_launches(name, launches, {
+        **dict.fromkeys(launches, 0),
+        "flash_attention": (cfg.n_encoder_layers + 2 * cfg.n_layers) * b,
+        "decode_attention": 2 * cfg.n_layers * steps},
+        f"{b} prefills, {steps} decode steps")
+    emit({"phase": name, "step": "serve", "requests": b,
+          "source_frames": src_len, "prompt_lens": list(ENCDEC_TARGET_LENS),
+          "new_tokens": tokens.shape[1], "decode_steps": steps,
+          "max_len": ENCDEC_MAX_LEN,
+          "launches": launches, "wall_s": wall,
+          "tokens_per_s": tokens.numel() / wall, "prefill_ms": prefill_ms,
+          "decode_step_ms_median": statistics.median(step_ms),
+          "decode_step_ms": step_ms,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    profile_decode(name, model, params, cache, statistics.median(step_ms))
+    del cache
+    small = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS,
+                                n_encoder_layers=LM_CHECK_LAYERS)
+    sub = dict(params, layers=params["layers"][:LM_CHECK_LAYERS],
+               cross_layers=params["cross_layers"][:LM_CHECK_LAYERS],
+               enc_layers=params["enc_layers"][:LM_CHECK_LAYERS])
+    card_vs_cpu(name, small, sub, torch.as_tensor(prompts[-1])[None],
+                src_embeds=src[-1:].cpu())
+    return launches
+
+
+VLM_TEXT_LENS, VLM_MAX_LEN = (113, 333), 1536
+
+
+def phase_vlm():
+    """Pixtral-12B at full width and depth in bfloat16: 2 requests of 1,024
+    seeded patch embeddings before 113 or 333 text tokens, each prefilled
+    alone, then LM_NEW_TOKENS greedy decode steps for the pair; peak
+    memory; then the card against the CPU through 2 layers."""
+    import torch
+    name = "lm_vlm"
+    t0 = time.perf_counter()
+    cfg, model, params, reduced = build_lm("pixtral-12b")
+    emit_init(name, cfg, params, reduced, "bfloat16",
+              time.perf_counter() - t0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM_SEED + 3)
+    patches = (0.1 * torch.randn(
+        (len(VLM_TEXT_LENS), cfg.n_frontend_tokens, cfg.d_model),
+        generator=gen, device="cuda")).to(torch.bfloat16)
+    prompts = lm_prompts(cfg.vocab_size, VLM_TEXT_LENS)[:-1]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    tokens, prefill_ms, step_ms, cache = prefill_then_decode(
+        name, cfg, model, params, prompts, VLM_MAX_LEN,
+        {"patch_embeds": patches})
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    b, steps = len(prompts), LM_NEW_TOKENS
+    check_launches(name, launches, {
+        **dict.fromkeys(launches, 0),
+        "flash_attention": cfg.n_layers * b,
+        "decode_attention": cfg.n_layers * steps},
+        f"{b} prefills, {steps} decode steps")
+    lens = [cfg.n_frontend_tokens + n for n in VLM_TEXT_LENS]
+    if cache["len"].tolist() != [n + steps for n in lens]:
+        fail(f"{name}: cache lengths {cache['len'].tolist()}")
+    emit({"phase": name, "step": "serve", "requests": b,
+          "patches": cfg.n_frontend_tokens, "text_lens": list(VLM_TEXT_LENS),
+          "new_tokens": tokens.shape[1], "decode_steps": steps,
+          "max_len": VLM_MAX_LEN,
+          "launches": launches, "wall_s": wall,
+          "tokens_per_s": tokens.numel() / wall, "prefill_ms": prefill_ms,
+          "decode_step_ms_median": statistics.median(step_ms),
+          "decode_step_ms": step_ms,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    profile_decode(name, model, params, cache, statistics.median(step_ms))
+    del cache
+    small = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    sub = dict(params, layers=params["layers"][:LM_CHECK_LAYERS])
+    card_vs_cpu(name, small, sub, torch.as_tensor(prompts[0])[None],
+                patch_embeds=patches[:1].cpu())
+    return launches
+
+
 def decode_gap_s(decode_row, lm_launches) -> float:
     """Launches x (device_ms - bound) of decode_attention over the LM
-    paths, in seconds: MiniCPM-2B's launches at its shape's row, Hymba's
-    split between its local (ring) and global layers at theirs."""
+    paths timed at their shapes, in seconds: MiniCPM-2B's launches at its
+    shape's row, Hymba's and Gemma-2's (both caches) split between their
+    local (ring) and global layers at theirs."""
     from repro_torch.configs import get_config
+    from repro_torch.models import build_model
     rows = decode_row["by_shape"]
 
     def gap(name):
         return rows[name]["device_ms"] - rows[name]["bound_ms"]
-    hymba = get_config(LM_PATHS["lm_hymba"][0])
-    n_global = len(hymba.global_layers)
-    per_launch = ((hymba.n_layers - n_global) * gap("lm_hymba_local")
-                  + n_global * gap("lm_hymba_global")) / hymba.n_layers
+
+    def per_launch(arch, prefix):
+        flags = build_model(get_config(arch), device="cpu")._layer_flags()
+        return (sum(flags) * gap(f"{prefix}_global")
+                + (len(flags) - sum(flags)) * gap(f"{prefix}_local")) \
+            / len(flags)
+    gemma2 = per_launch("gemma2-2b", "lm_gemma2")
     return (lm_launches["lm"]["decode_attention"] * gap("lm")
-            + lm_launches["lm_hymba"]["decode_attention"] * per_launch) / 1e3
+            + lm_launches["lm_hymba"]["decode_attention"]
+            * per_launch("hymba-1.5b", "lm_hymba")
+            + (lm_launches["lm_gemma2"]["decode_attention"]
+               + lm_launches["lm_gemma2_int8"]["decode_attention"]) * gemma2
+            ) / 1e3
+
+
+def timed(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, then the phase's seconds on a line of its
+    own."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    emit({"phase": name, "step": "seconds",
+          "seconds": time.perf_counter() - t0})
+    return out
 
 
 def main() -> None:
@@ -2130,7 +2796,7 @@ def main() -> None:
     if sys.argv[1:] == ["--decode-cold"]:
         phase_decode_cold()
         return
-    phase_build()
+    timed("build", phase_build)
 
     from repro_torch.core.rules.nn_translation import CUDA_PAD
     from repro_torch.data import hospital_tables
@@ -2147,26 +2813,48 @@ def main() -> None:
     cols = {c: t.column(c).cuda() for name, t in tables.items()
             if name != "prenatal_tests" for c in t.names}
     x_main = pipe.transform(cols)          # query (a)'s features, on card
-    row = phase_kernels(ens, ens_pad8, x_main)
+    row = timed("kernels", phase_kernels, ens, ens_pad8, x_main)
 
-    flash_row, decode_row = phase_attention_kernels()
-    wkv_row, ssd_row = phase_scan_kernels()
+    flash_row, decode_row = timed("kernels_attention",
+                                  phase_attention_kernels)
+    wkv_row, ssd_row = timed("kernels_scans", phase_scan_kernels)
 
-    outs, launches, store, infos = phase_main(tables, pipe)
-    phase_check(tables, pipe, outs)
-    service_launches = phase_service(store, tables, outs, infos)
+    outs, launches, store, infos = timed("main", phase_main, tables, pipe)
+    timed("check", phase_check, tables, pipe, outs)
+    service_launches = timed("service", phase_service, store, tables, outs,
+                             infos)
     del outs, store
     torch.cuda.empty_cache()
-    sharded_launches = phase_sharded(tables, pipe)
+    sharded_launches = timed("sharded", phase_sharded, tables, pipe)
     torch.cuda.empty_cache()
-    phase_fits(tables)
+    timed("fits", phase_fits, tables)
     del tables
     torch.cuda.empty_cache()
 
     lm_launches = {}
-    for name in LM_PATHS:
-        lm_launches[name] = phase_lm(name)
+    for name in ("lm", "lm_rwkv", "lm_hymba"):
+        lm_launches[name] = timed(name, phase_lm, name)[0]
         torch.cuda.empty_cache()
+    lm_launches["lm_gemma2"], g16 = timed("lm_gemma2", phase_lm, "lm_gemma2")
+    lm_launches["lm_gemma2_int8"], g8 = timed(
+        "lm_gemma2_int8", phase_lm, "lm_gemma2_int8", params=g16["params"])
+    timed("lm_gemma2_int8_vs_bf16", gemma2_int8_vs_bf16, g16, g8)
+    del g8
+    lm_launches["speculative"] = timed("speculative", phase_speculative, g16)
+    del g16
+    torch.cuda.empty_cache()
+    lm_launches["paged"] = timed("paged", phase_paged)
+    for name in ("lm_moe", "lm_qwen3_moe"):
+        lm_launches[name], ctx = timed(name, phase_lm, name)
+        if name == "lm_moe":
+            timed("lm_moe_repeat", moe_repeat, name, ctx["model"],
+                  ctx["params"], ctx["prompts"], ctx["done"])
+        del ctx
+        torch.cuda.empty_cache()
+    lm_launches["lm_encdec"] = timed("lm_encdec", phase_encdec)
+    torch.cuda.empty_cache()
+    lm_launches["lm_vlm"] = timed("lm_vlm", phase_vlm)
+    torch.cuda.empty_cache()
 
     def on_paths(kernel, rows):
         by_path = {name: counts[kernel]

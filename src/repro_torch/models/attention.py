@@ -38,10 +38,12 @@ def attention_params(cfg) -> Dict:
 
 
 def project_qkv(cfg, p: Dict, x: torch.Tensor,
-                positions: Optional[torch.Tensor] = None
+                positions: Optional[torch.Tensor] = None,
+                use_rope: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,Kv,hd], RoPE applied at
-    ``positions`` ([B,S] or [1,S]; default 0..S-1)."""
+    ``positions`` ([B,S] or [1,S]; default 0..S-1) unless ``use_rope`` is
+    False (cross-attention's queries)."""
     b, s, _ = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
@@ -56,6 +58,8 @@ def project_qkv(cfg, p: Dict, x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if not use_rope:
+        return q.contiguous(), k.contiguous(), v.contiguous()
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     sin, cos = rope(positions, cfg.d_head, cfg.rope_theta)

@@ -1,9 +1,12 @@
 """Carry LM parameters between the JAX package and the port.
 
 The JAX package keeps a nested dict of arrays whose ``"layers"`` entry
+(and the encoder-decoder's ``"enc_layers"`` and ``"cross_layers"``)
 stacks every per-layer parameter on a leading ``[L, ...]`` axis; the port
-keeps ``"layers"`` as a list of L per-layer dicts.  Values pass through
-unchanged (float32 stays float32), so a round trip is bitwise.
+keeps each as a list of L per-layer dicts.  Every other leaf (``enc_norm``
+among them) and the MoE's ``[E, ...]`` expert weights inside a layer pass
+as they are.  Values pass through unchanged (float32 stays float32), so a
+round trip is bitwise.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from .layers import ParamDef
 from .transformer import build_model
 
 __all__ = ["lm_params_from_numpy", "lm_params_to_numpy"]
+
+_STACKED = ("layers", "enc_layers", "cross_layers")
 
 
 def _check_shapes(tpl, tree, path: str) -> None:
@@ -66,16 +71,19 @@ def lm_params_from_numpy(cfg, tree: Dict[str, Any],
     means the card, and raises without one; pass ``device="cpu"`` for the
     CPU)."""
     device = resolve_device(device)
-    leaf = tree["layers"]
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
-    n_layers = np.shape(leaf)[0]
-    flat = {k: v for k, v in tree.items() if k != "layers"}
-    out = _map(flat, lambda a: torch.from_numpy(np.array(a)).to(device))
-    out["layers"] = [
-        _map(_unstack(tree["layers"], i),
-             lambda a: torch.from_numpy(np.array(a)).to(device))
-        for i in range(n_layers)]
+
+    def put(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    out = _map({k: v for k, v in tree.items() if k not in _STACKED}, put)
+    for key in _STACKED:
+        if key not in tree:
+            continue
+        leaf = tree[key]
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        out[key] = [_map(_unstack(tree[key], i), put)
+                    for i in range(np.shape(leaf)[0])]
     _check_shapes(build_model(cfg, device="cpu").param_template(), out,
                   "params")
     return out
@@ -90,6 +98,9 @@ def _host(t: torch.Tensor) -> np.ndarray:
 def lm_params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """The port's parameters -> the JAX package's layout (numpy, layers
     stacked on axis 0)."""
-    out = _map({k: v for k, v in params.items() if k != "layers"}, _host)
-    out["layers"] = _stack([_map(lp, _host) for lp in params["layers"]])
+    out = _map({k: v for k, v in params.items() if k not in _STACKED},
+               _host)
+    for key in _STACKED:
+        if key in params:
+            out[key] = _stack([_map(lp, _host) for lp in params[key]])
     return out

@@ -1,23 +1,33 @@
 """LM assembly (the JAX package's ``models/transformer.py``, inference
-only) for three families: dense full attention (MiniCPM, Phi-3, Qwen2.5),
-RWKV-6 (attention-free, the WKV6 recurrence) and Hymba (parallel attention
-and SSM heads, sliding-window attention with a few global layers).
+only): every family of ``configs`` behind one API — dense GQA (with
+gemma2's local/global alternation, soft caps, QK-norm, biases), mixture of
+experts, RWKV-6, Hymba (parallel attention and SSM heads), the
+encoder-decoder (bidirectional encoder, cross-attention decoder) and the
+vision-patch frontend.
 
 ``LanguageModel(cfg, device)`` exposes:
 
 - ``param_template() / init_params(generator)``: the parameters as a nested
-  dict, with ``"layers"`` a list of per-layer dicts (the JAX package stacks
+  dict, with ``"layers"`` (and the encoder-decoder's ``"enc_layers"`` and
+  ``"cross_layers"``) a list of per-layer dicts (the JAX package stacks
   them on a leading ``[L, ...]`` axis; ``models.convert`` carries them
   across);
-- ``prefill(params, tokens, max_len)``: full-sequence forward returning the
-  last position's logits and a decode cache of capacity ``max_len``;
+- ``prefill(params, tokens, max_len, patch_embeds=None, src_embeds=None)``:
+  full-sequence forward returning the last position's logits and a decode
+  cache of capacity ``max_len``; ``patch_embeds`` [B,P,D] (pixtral) go
+  before the token embeddings, ``src_embeds`` [B,T,D] (seamless) feed the
+  encoder;
 - ``decode_step(params, cache, tokens)``: one token for every batch row;
-- ``cache_specs(batch, max_len)``: shapes and dtypes of the decode cache.
+- ``cache_specs(batch, max_len)``: shapes and dtypes of the decode cache;
+- ``_embed_inputs``, ``_decoder_stack`` and ``_logits``: the pieces of a
+  full forward, under the JAX package's names (``serve.speculative``
+  verifies drafts through them).
 
 Mixed precision follows the JAX package: parameters are kept in
 ``param_dtype`` (float32 by default), each layer computes in bfloat16, the
-KV cache is bfloat16, logits are float32.  Like the JAX prefill, the
-residual stream goes back to bfloat16 after every layer; like the JAX
+KV cache is bfloat16 (or int8 with per-token, per-KV-head float32 scales:
+``kv_cache_dtype=torch.int8``), logits are float32.  Like the JAX prefill,
+the residual stream goes back to bfloat16 after every layer; like the JAX
 decode, it does not (an RWKV layer's float32 output then carries on).
 Attention, the WKV6 recurrence and the SSD scan go through the kernel
 wrappers (``models.attention``, ``models.rwkv6``, ``models.ssm``):
@@ -25,13 +35,11 @@ hand-written CUDA kernels on the card, their plain versions on the CPU.
 
 The decode cache is heterogeneous per layer, as in the JAX package: k/v
 buffers of capacity ``max_len`` for global attention layers, ring buffers
-of ``window`` slots (slot = position % window) for sliding-window layers,
-the SSM's conv and SSD states beside them for Hymba, and the token shifts
-and WKV state for RWKV-6.
-
-``build_model`` raises ``NotImplementedError`` for every family or option
-the port does not carry yet, naming it: gemma2's local/global alternation,
-mixture of experts, encoder-decoder and multimodal frontends.
+of ``window`` slots (slot = position % window) for sliding-window layers
+(Hymba's and gemma2's local layers), the SSM's conv and SSD states beside
+them for Hymba, the token shifts and WKV state for RWKV-6, and the
+encoder's output for the encoder-decoder (its cross-attention K/V are
+projected from it again at every step, as in JAX).
 """
 
 from __future__ import annotations
@@ -43,14 +51,16 @@ import torch
 from ..configs.base import ModelConfig
 from ..relational.table import resolve_device
 from . import attention as attn_mod
+from . import moe as moe_mod
 from . import rwkv6 as rwkv_mod
 from . import ssm as ssm_mod
 from .layers import dense_init, init_params, mlp_apply, mlp_params, rms_norm, \
     softcap
 
-__all__ = ["LanguageModel", "build_model"]
+__all__ = ["LanguageModel", "build_model", "quantize_kv"]
 
 _NEG_INF = -1e30
+_KV_DTYPES = (torch.bfloat16, torch.int8)
 
 
 def _cast(tree, dtype: torch.dtype):
@@ -61,36 +71,43 @@ def _cast(tree, dtype: torch.dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
-def _unported_reason(cfg: ModelConfig) -> Optional[str]:
-    """Why the port cannot build ``cfg`` yet, or None if it can."""
-    if cfg.is_encdec:
-        return "encoder-decoder models (family encdec)"
-    if cfg.n_experts > 0:
-        return "mixture of experts (family moe)"
-    if cfg.frontend != "none":
-        return f"the {cfg.frontend} frontend (family {cfg.family})"
-    if cfg.attention == "local_global":
-        return (f"gemma2's local/global attention alternation (family "
-                f"{cfg.family})")
-    return None
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [..., hd] -> (int8 values, float32 scales [...]), computed in x's
+    dtype as the JAX package does: scale = max(|x|) over the head dim,
+    clamped to at least 1e-6, / 127; values round(x / scale) (half to even)
+    clipped to +-127."""
+    sc = torch.clamp(x.abs().amax(-1), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(x / sc[..., None]), -127, 127)
+    return q.to(torch.int8), sc.float()
+
+
+def _dequantize_kv(q: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    """int8 cache and its scales -> bfloat16 (the JAX decode's
+    ``q.astype(bf16) * scale.astype(bf16)``)."""
+    return q.to(torch.bfloat16) * sc[..., None].to(torch.bfloat16)
 
 
 class LanguageModel:
-    """Decoder LM (dense, RWKV-6 or Hymba) on one device.
+    """LM of any family in ``configs`` on one device.
 
     ``device=None`` means the card and raises without one; pass
-    ``device="cpu"`` to run on the CPU."""
+    ``device="cpu"`` to run on the CPU.  ``kv_cache_dtype`` is
+    ``torch.bfloat16`` or ``torch.int8``.  ``moe_counts``, when set to a
+    dict, gains the device tensors ``routed`` and ``dropped`` (the
+    (token, expert) pairs routed and dropped by capacity) over the MoE
+    layers the model runs."""
 
     def __init__(self, cfg: ModelConfig, device: Any = None,
-                 param_dtype: torch.dtype = torch.float32):
-        reason = _unported_reason(cfg)
-        if reason is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {reason} is not ported to repro_torch yet")
+                 param_dtype: torch.dtype = torch.float32,
+                 kv_cache_dtype: torch.dtype = torch.bfloat16):
+        if kv_cache_dtype not in _KV_DTYPES:
+            raise ValueError(f"kv_cache_dtype {kv_cache_dtype}: the KV cache "
+                             f"is one of {_KV_DTYPES}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.param_dtype = param_dtype
-        self.kv_cache_dtype = torch.bfloat16
+        self.kv_cache_dtype = kv_cache_dtype
+        self.moe_counts: Optional[Dict[str, torch.Tensor]] = None
 
     # ------------------------------------------------------------------ params
     def _layer_template(self) -> Dict:
@@ -109,8 +126,23 @@ class LanguageModel:
             layer["fuse_ns"] = dense_init(d, init="zeros")
             layer["beta_a"] = dense_init(d, init="ones")
             layer["beta_s"] = dense_init(d, init="ones")
-        layer["mlp"] = mlp_params(d, cfg.d_ff, cfg.act)
+        if cfg.n_experts > 0:
+            layer["moe"] = moe_mod.moe_params(cfg)
+        else:
+            layer["mlp"] = mlp_params(d, cfg.d_ff, cfg.act)
         return layer
+
+    def _encoder_layer_template(self) -> Dict:
+        cfg = self.cfg
+        d = cfg.d_model
+        return {"ln1": dense_init(d, init="zeros"),
+                "ln2": dense_init(d, init="zeros"),
+                "attn": attn_mod.attention_params(cfg),
+                "mlp": mlp_params(d, cfg.d_ff, cfg.act)}
+
+    def _decoder_cross_template(self) -> Dict:
+        return {"ln_cross": dense_init(self.cfg.d_model, init="zeros"),
+                "cross": attn_mod.attention_params(self.cfg)}
 
     def param_template(self) -> Dict:
         cfg = self.cfg
@@ -122,6 +154,12 @@ class LanguageModel:
         }
         if not cfg.tie_embeddings:
             tpl["lm_head"] = dense_init(d, v)
+        if cfg.is_encdec:
+            tpl["enc_layers"] = [self._encoder_layer_template()
+                                 for _ in range(cfg.n_encoder_layers)]
+            tpl["enc_norm"] = dense_init(d, init="zeros")
+            tpl["cross_layers"] = [self._decoder_cross_template()
+                                   for _ in range(cfg.n_layers)]
         return tpl
 
     def init_params(self, generator: torch.Generator) -> Dict:
@@ -136,6 +174,20 @@ class LanguageModel:
         h = params["embed"][tokens.to(self.device, torch.long)]
         return (h * self.cfg.embed_scale).to(torch.bfloat16)
 
+    def _embed_inputs(self, params, tokens: torch.Tensor,
+                      patch_embeds: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, int]:
+        """-> (h [B,P+S,D] bfloat16, P): the patch embeddings, where given
+        (pixtral), go before the token embeddings."""
+        h = self._embed(params, tokens)
+        if patch_embeds is None:
+            return h, 0
+        if self.cfg.frontend != "vision_patches":
+            raise ValueError(f"{self.cfg.name} takes no patch embeddings "
+                             f"(frontend {self.cfg.frontend!r})")
+        patches = patch_embeds.to(self.device, torch.bfloat16)
+        return torch.cat([patches, h], dim=1), patch_embeds.shape[1]
+
     def _logits(self, params, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
@@ -149,8 +201,12 @@ class LanguageModel:
     # ----------------------------------------------------------------- blocks
     def _layer_flags(self) -> List[bool]:
         """Per layer: attention over the whole prefix (True) or over the
-        last ``window_size`` positions (False; Hymba's local layers)."""
+        last ``window_size`` positions (False): gemma2's layer i is global
+        iff i % global_every == global_every - 1, Hymba's if listed."""
         cfg = self.cfg
+        if cfg.attention == "local_global" and cfg.global_every:
+            return [i % cfg.global_every == cfg.global_every - 1
+                    for i in range(cfg.n_layers)]
         if cfg.attention == "swa_global":
             return [i in cfg.global_layers for i in range(cfg.n_layers)]
         return [True] * cfg.n_layers
@@ -162,6 +218,13 @@ class LanguageModel:
         eps = self.cfg.norm_eps
         return 0.5 * (rms_norm(attn_out, lp["fuse_na"], eps) * lp["beta_a"]
                       + rms_norm(ssm_out, lp["fuse_ns"], eps) * lp["beta_s"])
+
+    def _mlp_or_moe(self, lp, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.n_experts > 0:
+            return moe_mod.moe_apply(cfg, lp["moe"], x,
+                                     counts=self.moe_counts)
+        return mlp_apply(lp["mlp"], x, cfg.act)
 
     def _rwkv_block(self, lp, h: torch.Tensor, state: Optional[Dict] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -177,10 +240,14 @@ class LanguageModel:
             cfg, tm, rms_norm(h, lp["ln2"], cfg.norm_eps), state)
         return h + rs * y, {**st, **st2}
 
-    def _block_seq(self, lp, is_global: bool, h: torch.Tensor
+    def _block_seq(self, lp, is_global: bool, h: torch.Tensor,
+                   cp: Optional[Dict] = None,
+                   enc_out: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full-sequence block (prefill).  Returns (h, this layer's cache
-        entries: k/v, plus the SSM or RWKV states)."""
+        entries: k/v, plus the SSM or RWKV states).  For the
+        encoder-decoder, ``cp``/``enc_out`` put cross-attention between
+        self-attention and the MLP."""
         cfg = self.cfg
         if cfg.rwkv:
             return self._rwkv_block(lp, h)
@@ -198,32 +265,105 @@ class LanguageModel:
             cache.update(ssm_state)
         else:
             h = h + rs * attn_out
-        y = mlp_apply(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                      cfg.act)
+        if cp is not None:
+            h = self._cross_block(cp, h, enc_out)
+        y = self._mlp_or_moe(lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
         return h + rs * y, cache
+
+    def _cross_block(self, cp, h: torch.Tensor, enc_out: torch.Tensor,
+                     decode: bool = False) -> torch.Tensor:
+        """Cross-attention over the encoder's output: queries without RoPE,
+        K/V projected from ``enc_out``; the flash kernel non-causal with
+        S != T in prefill, the decode kernel over the whole encoder length
+        in decode."""
+        cfg = self.cfg
+        x = rms_norm(h, cp["ln_cross"], cfg.norm_eps)
+        q, _, _ = attn_mod.project_qkv(cfg, cp["cross"], x, use_rope=False)
+        b, t, _ = enc_out.shape
+        k = (enc_out @ cp["cross"]["wk"].to(enc_out.dtype)).reshape(
+            b, t, cfg.n_kv_heads, cfg.d_head)
+        v = (enc_out @ cp["cross"]["wv"].to(enc_out.dtype)).reshape(
+            b, t, cfg.n_kv_heads, cfg.d_head)
+        if decode:
+            out = attn_mod.decode_attention(
+                cfg, q, k, v, torch.full((b,), t, dtype=torch.int32,
+                                         device=h.device))
+        else:
+            out = attn_mod.full_attention(cfg, q, k, v, mask_kind="cross")
+        bb, s = out.shape[:2]
+        return h + out.reshape(bb, s, cfg.q_dim) @ cp["cross"]["wo"]
+
+    def _decoder_stack(self, params, h: torch.Tensor,
+                       collect_cache: bool = False,
+                       enc_out: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Optional[List[Dict]]]:
+        """Every decoder layer over the full sequence -> (h bfloat16, the
+        per-layer prefill cache entries if ``collect_cache``, else None)."""
+        cross = params.get("cross_layers") if self.cfg.is_encdec else None
+        caches = []
+        for i, (lp, is_global) in enumerate(zip(params["layers"],
+                                                self._layer_flags())):
+            cp = _cast(cross[i], torch.bfloat16) if cross else None
+            h, c = self._block_seq(_cast(lp, torch.bfloat16), is_global, h,
+                                   cp=cp, enc_out=enc_out)
+            h = h.to(torch.bfloat16)        # the JAX layer scan's carry
+            if collect_cache:
+                caches.append(c)
+        return h, caches if collect_cache else None
+
+    def _encoder_stack(self, params, src: torch.Tensor) -> torch.Tensor:
+        """src [B,T,D] -> the encoder's output [B,T,D] bfloat16:
+        bidirectional self-attention with RoPE, then the MLP, bfloat16
+        between layers, then ``enc_norm``."""
+        cfg = self.cfg
+        h = src.to(self.device, torch.bfloat16)
+        for lp in params["enc_layers"]:
+            lp = _cast(lp, torch.bfloat16)
+            x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+            q, k, v = attn_mod.project_qkv(cfg, lp["attn"], x)
+            out = attn_mod.full_attention(cfg, q, k, v, mask_kind="bidir")
+            b, s = out.shape[:2]
+            h = h + out.reshape(b, s, cfg.q_dim) @ lp["attn"]["wo"]
+            h = h + mlp_apply(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                              cfg.act)
+            h = h.to(torch.bfloat16)
+        return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
     # ---------------------------------------------------------------- prefill
     def prefill(self, params, tokens: torch.Tensor,
-                max_len: Optional[int] = None
+                max_len: Optional[int] = None,
+                patch_embeds: Optional[torch.Tensor] = None,
+                src_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict]:
         """tokens [B,S] -> (last-position logits [B,V_padded] float32, decode
-        cache of capacity ``max_len`` (default S + 64))."""
-        h = self._embed(params, tokens)
+        cache of capacity ``max_len`` (default P + S + 64)).
+        ``patch_embeds`` [B,P,D] go before the tokens (pixtral);
+        ``src_embeds`` [B,T,D] are the encoder's input (seamless, where
+        they are required)."""
+        cfg = self.cfg
+        enc_out = None
+        if cfg.is_encdec:
+            if src_embeds is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder prefill "
+                                 f"needs src_embeds")
+            enc_out = self._encoder_stack(params, src_embeds)
+        elif src_embeds is not None:
+            raise ValueError(f"{cfg.name} has no encoder: src_embeds given")
+        h, _ = self._embed_inputs(params, tokens, patch_embeds)
         seq_len = h.shape[1]
         max_len = max_len or seq_len + 64
         if seq_len > max_len:
             raise ValueError(f"prefill: prompt of {seq_len} tokens exceeds "
                              f"the cache capacity max_len={max_len}")
-        caches = []
-        for lp, is_global in zip(params["layers"], self._layer_flags()):
-            h, c = self._block_seq(_cast(lp, torch.bfloat16), is_global, h)
-            h = h.to(torch.bfloat16)        # the JAX layer scan's carry
-            caches.append(c)
+        h, caches = self._decoder_stack(params, h, collect_cache=True,
+                                        enc_out=enc_out)
         logits = self._logits(params, h[:, -1:])
         cache = {"len": torch.full((h.shape[0],), seq_len, dtype=torch.int32,
                                    device=self.device),
                  "layers": self._prefill_caches_to_decode(
                      caches, h.shape[0], seq_len, max_len)}
+        if enc_out is not None:
+            cache["enc_out"] = enc_out
         return logits[:, 0], cache
 
     def _prefill_caches_to_decode(self, caches: List[Dict], batch: int,
@@ -231,23 +371,31 @@ class LanguageModel:
         """Per-layer prefill entries -> the decode cache of
         ``cache_specs``: k/v [B,S,Kv,hd] into full-capacity buffers (zero
         past the prompt) or, for sliding-window layers, ring buffers holding
-        the last ``window`` positions at slot = position % window; states
-        copied in the spec's dtype."""
+        the last ``window`` positions at slot = position % window, then (an
+        int8 cache) the whole buffer quantized in float32 with its scales;
+        states copied in the spec's dtype."""
         out = []
         for entries, spec in zip(caches,
                                  self.cache_specs(batch, max_len)["layers"]):
             layer = {}
             for name, (shape, dtype) in spec.items():
+                if name in ("k_scale", "v_scale"):
+                    continue
                 x = entries[name]
                 if name not in ("k", "v"):
                     layer[name] = x.to(dtype, copy=True)
                     continue
-                buf = torch.zeros(shape, dtype=dtype, device=self.device)
+                buf = torch.zeros(shape, dtype=torch.bfloat16,
+                                  device=self.device)
                 take = min(shape[1], seq_len)
                 slots = torch.arange(seq_len - take, seq_len,
                                      device=self.device) % shape[1]
-                buf[:, slots] = x[:, seq_len - take:].to(dtype)
-                layer[name] = buf
+                buf[:, slots] = x[:, seq_len - take:].to(torch.bfloat16)
+                if dtype == torch.int8:
+                    layer[name], layer[f"{name}_scale"] = \
+                        quantize_kv(buf.float())
+                else:
+                    layer[name] = buf
             out.append(layer)
         return out
 
@@ -265,29 +413,42 @@ class LanguageModel:
             kv = ((batch, cap, cfg.n_kv_heads, cfg.d_head),
                   self.kv_cache_dtype)
             entry = {"k": kv, "v": kv}
+            if self.kv_cache_dtype == torch.int8:
+                scale = ((batch, cap, cfg.n_kv_heads), torch.float32)
+                entry.update(k_scale=scale, v_scale=scale)
             if cfg.hybrid:
                 entry.update(ssm_mod.ssm_state_specs(cfg, batch))
             layers.append(entry)
-        return {"len": ((batch,), torch.int32), "layers": layers}
+        spec = {"len": ((batch,), torch.int32), "layers": layers}
+        if cfg.is_encdec:
+            enc_len = max(1, int(max_len * cfg.encoder_len_ratio))
+            spec["enc_out"] = ((batch, enc_len, cfg.d_model), torch.bfloat16)
+        return spec
 
     def decode_step(self, params, cache: Dict, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict]:
         """tokens [B,1] -> (logits [B,V_padded] float32, cache advanced one
         position).  Unlike the JAX package, which returns new buffers, the
-        new token's k/v and every layer's new states are written into the
-        cache's buffers in place (at full width a copy would move the whole
-        cache every step); the buffers keep their dtypes."""
+        new token's k/v (and int8 scales) and every layer's new states are
+        written into the cache's buffers in place (at full width a copy
+        would move the whole cache every step); the buffers keep their
+        dtypes."""
         pos = cache["len"]                                   # [B] int32
         h = self._embed(params, tokens)
-        for lp, lc, is_global in zip(params["layers"], cache["layers"],
-                                     self._layer_flags()):
+        cross = params.get("cross_layers") if self.cfg.is_encdec else None
+        for i, (lp, lc, is_global) in enumerate(zip(
+                params["layers"], cache["layers"], self._layer_flags())):
+            cp = _cast(cross[i], torch.bfloat16) if cross else None
             h = self._decode_block(_cast(lp, torch.bfloat16), lc, h, pos,
-                                   is_global)
+                                   is_global, cp=cp,
+                                   enc_out=cache.get("enc_out"))
         logits = self._logits(params, h)[:, 0]
         return logits, dict(cache, len=pos + 1)
 
     def _decode_block(self, lp, lc, h: torch.Tensor, pos: torch.Tensor,
-                      is_global: bool) -> torch.Tensor:
+                      is_global: bool, cp: Optional[Dict] = None,
+                      enc_out: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
         cfg = self.cfg
         if cfg.rwkv:
             h, state = self._rwkv_block(lp, h, lc)
@@ -303,10 +464,20 @@ class LanguageModel:
         slot = (torch.clamp(pos, max=cap - 1) if is_global
                 else pos % cap).long()
         rows = torch.arange(b, device=x.device)
-        lc["k"][rows, slot] = k[:, 0].to(lc["k"].dtype)
-        lc["v"][rows, slot] = v[:, 0].to(lc["v"].dtype)
+        if self.kv_cache_dtype == torch.int8:
+            # quantized in the new token's dtype (bfloat16), as in JAX
+            for name, val in (("k", k), ("v", v)):
+                qv, sc = quantize_kv(val[:, 0])
+                lc[name][rows, slot] = qv
+                lc[f"{name}_scale"][rows, slot] = sc
+            k_att = _dequantize_kv(lc["k"], lc["k_scale"])
+            v_att = _dequantize_kv(lc["v"], lc["v_scale"])
+        else:
+            lc["k"][rows, slot] = k[:, 0].to(lc["k"].dtype)
+            lc["v"][rows, slot] = v[:, 0].to(lc["v"].dtype)
+            k_att, v_att = lc["k"], lc["v"]
         valid_len = torch.clamp(pos + 1, max=cap)
-        out = attn_mod.decode_attention(cfg, q, lc["k"], lc["v"], valid_len)
+        out = attn_mod.decode_attention(cfg, q, k_att, v_att, valid_len)
         attn_out = out.reshape(b, 1, cfg.q_dim) @ lp["attn"]["wo"]
         if cfg.hybrid:
             ssm_out, state = ssm_mod.ssm_apply(
@@ -316,13 +487,16 @@ class LanguageModel:
                 lc[name].copy_(s)
         else:
             h = h + rs * attn_out
-        y = mlp_apply(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                      cfg.act)
+        if cp is not None:
+            h = self._cross_block(cp, h, enc_out, decode=True)
+        y = self._mlp_or_moe(lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
         return h + rs * y
 
 
 def build_model(cfg: ModelConfig, device: Any = None,
-                param_dtype: torch.dtype = torch.float32) -> LanguageModel:
-    """A ``LanguageModel`` for ``cfg``; raises ``NotImplementedError`` for
-    a family or option the port does not carry yet."""
-    return LanguageModel(cfg, device=device, param_dtype=param_dtype)
+                param_dtype: torch.dtype = torch.float32,
+                kv_cache_dtype: torch.dtype = torch.bfloat16
+                ) -> LanguageModel:
+    """A ``LanguageModel`` for ``cfg`` (any of ``configs.list_archs()``)."""
+    return LanguageModel(cfg, device=device, param_dtype=param_dtype,
+                         kv_cache_dtype=kv_cache_dtype)

@@ -37,6 +37,8 @@ def test_scan_covers_the_package():
     assert len(_FILES) > 30
     assert any(p.name == "codegen.py" for p in _FILES)
     assert ROOT / "src" / "repro_torch" / "core" / "clustering.py" in _FILES
+    for name in ("models/moe.py", "serve/kv_cache.py", "serve/speculative.py"):
+        assert ROOT / "src" / "repro_torch" / name in _FILES
 
 
 @pytest.mark.parametrize("path", _FILES,
@@ -105,6 +107,17 @@ def test_language_model_runs_on_the_card_or_raises():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 make(cfg)
         assert make(cfg, device="cpu").device.type == "cpu"
+
+
+def test_paged_kv_cache_runs_on_the_card_or_raises():
+    from repro_torch.serve import PagedKVCache
+    if torch.cuda.is_available():
+        assert PagedKVCache(2, 4, 1, 64, 2).pool.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            PagedKVCache(2, 4, 1, 64, 2)
+    assert PagedKVCache(2, 4, 1, 64, 2, device="cpu").pool.device.type \
+        == "cpu"
 
 
 def test_param_conversion_goes_to_the_card_or_raises():

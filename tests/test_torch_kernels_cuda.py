@@ -291,6 +291,114 @@ def test_decode_attention_replays_from_cuda_graph(cuda_device):
         <= _ATT_TOL[torch.bfloat16]
 
 
+# -- Gemma-2 2B's attention, the paged cache, the MoE combine ---------------
+# Gemma-2 2B: 8 query heads over 4 KV heads of 256 (G 2), the attention
+# soft cap 50, local layers over the last 4,096 positions.
+_GEMMA2 = {"h": 8, "kv": 4, "d": 256, "window": 4096, "cap": 50.0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [_GEMMA2["window"], 0],
+                         ids=["local", "global"])
+def test_flash_attention_at_gemma2_shapes(window, cuda_device):
+    """A prefill past the window (S = T = 4,200): the local layers' mask
+    drops the first keys of the last rows."""
+    s, h, kv, d = 4200, _GEMMA2["h"], _GEMMA2["kv"], _GEMMA2["d"]
+    gen = torch.Generator().manual_seed(s + window)
+    q, k, v = (_randn(gen, (1, s, heads, d), torch.bfloat16, cuda_device)
+               for heads in (h, kv, kv))
+    before = flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v, causal=True, window=window,
+                                    softcap=_GEMMA2["cap"])
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    want = attention_ref(q, k, v, causal=True, window=window,
+                         softcap=_GEMMA2["cap"])
+    assert float((got.float() - want.float()).abs().max()) \
+        <= _ATT_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,lens", [
+    (8192, [129, 715, 4112, 5016]),     # a global layer's cache
+    (4096, [129, 715, 4096, 4096])],    # a local layer's ring, full
+    ids=["global", "ring"])
+def test_decode_attention_at_gemma2_shapes(t, lens, cuda_device):
+    h, kv, d = _GEMMA2["h"], _GEMMA2["kv"], _GEMMA2["d"]
+    gen = torch.Generator().manual_seed(t)
+    q = _randn(gen, (4, 1, h, d), torch.bfloat16, cuda_device)
+    k = _randn(gen, (4, t, kv, d), torch.bfloat16, cuda_device)
+    v = _randn(gen, (4, t, kv, d), torch.bfloat16, cuda_device)
+    cache_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    got = decode_ops.decode_attention(q, k, v, cache_len,
+                                      softcap=_GEMMA2["cap"])
+    want = decode_attention_ref(q, k, v, cache_len, softcap=_GEMMA2["cap"])
+    assert float((got.float() - want.float()).abs().max()) \
+        <= _ATT_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_decode_attention_over_paged_gather_is_bitwise_contiguous(
+        cuda_device):
+    """Four sequences of 1 to 2,000 tokens appended interleaved into one
+    pool of 16-slot blocks at Gemma-2's KV shape: decode attention over
+    ``batch_gather`` equals it over contiguous caches holding the same
+    tokens, bitwise."""
+    from repro_torch.serve import PagedKVCache
+    h, kv, d = _GEMMA2["h"], _GEMMA2["kv"], _GEMMA2["d"]
+    lengths, block = [1, 517, 1300, 2000], 16
+    max_blocks = -(-max(lengths) // block)
+    gen = torch.Generator().manual_seed(11)
+    pools = [PagedKVCache(len(lengths) * max_blocks, block, kv, d,
+                          max_blocks, device=cuda_device) for _ in "kv"]
+    t = max_blocks * block
+    contiguous = [torch.zeros((len(lengths), t, kv, d), dtype=torch.bfloat16,
+                              device=cuda_device) for _ in "kv"]
+    tokens = [_randn(gen, (n, 2, kv, d), torch.bfloat16, cuda_device)
+              for n in lengths]
+    order = [i for i, n in enumerate(lengths) for _ in range(n)]
+    order = [order[j] for j in torch.randperm(len(order), generator=gen)]
+    pos = [0] * len(lengths)
+    for i in order:
+        for pool, cont, which in zip(pools, contiguous, (0, 1)):
+            if i not in pool.tables:
+                pool.allocate(i)
+            pool.append(i, tokens[i][pos[i], which])
+            cont[i, pos[i]] = tokens[i][pos[i], which]
+        pos[i] += 1
+    (pk, lens), (pv, _) = (pool.batch_gather(list(range(len(lengths))))
+                           for pool in pools)
+    assert lens.tolist() == lengths and pk.shape == contiguous[0].shape
+    q = _randn(gen, (len(lengths), 1, h, d), torch.bfloat16, cuda_device)
+    paged = decode_ops.decode_attention(q, pk, pv, lens,
+                                        softcap=_GEMMA2["cap"])
+    flat = decode_ops.decode_attention(q, *contiguous, lens,
+                                       softcap=_GEMMA2["cap"])
+    torch.cuda.synchronize()
+    assert torch.equal(paged, flat)
+
+
+@pytest.mark.cuda
+def test_moe_combine_is_bitwise_repeatable_on_the_card(cuda_device):
+    """Granite-MoE's layer at full width (32 experts, top-8, d_model 1024,
+    d_ff 512) on 333 bfloat16 tokens, twice: bitwise equal outputs (the
+    combine sums each token's experts in a fixed order, no atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import init_params
+    from repro_torch.models.moe import moe_apply, moe_params
+    cfg = get_config("granite-moe-1b-a400m")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = init_params(moe_params(cfg), gen, torch.bfloat16)
+    x = torch.randn((1, 333, cfg.d_model), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    counts = {}
+    a = moe_apply(cfg, p, x, counts=counts)
+    b = moe_apply(cfg, p, x)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
+    assert int(counts["routed"]) == 333 * cfg.experts_per_token
+
+
 # -- scans ----------------------------------------------------------------
 # y and the final state within 3e-4 of the plain version (tests/
 # test_kernels.py's tolerance): the kernels sum each chunk's terms in
