@@ -181,16 +181,47 @@ Phases (each prints JSON lines; any failure exits non-zero):
                step for the encoder-decoder), prefill and decode-step ms,
                peak memory, the card against the CPU through 2 (+ 2
                encoder) layers.
+13. train_kernels — the flash kernel's log-sum-exp (written for the
+               backward) against ``ref.py``'s within 1e-4, float32 and
+               bfloat16, at MiniCPM-2B's train shape (B 8, S = T = 256, 36
+               heads of 64, causal), Gemma-2's local and global layers (D
+               256, cap 50, S = T = 4,200), a bidirectional and a cross case
+               (S != T), one token, and rows that see no key (lse -1e30);
+               ``out`` within 2e-5 / 2e-2 on every row that sees a key; the
+               flash VJP's dq, dk, dv on the card against autograd through
+               the float32 plain version (3e-4 / 1e-3); the scan wrappers
+               refusing a gradient; at the train shape, the launch with and
+               without the lse, the plain backward's device time and SDPA's
+               forward + backward.
+14. train   — MiniCPM-2B at full width and depth (40 layers, float32 master
+               weights, AdamW, WSD, remat) for 5 steps of ``make_train_step``
+               on ``TokenStream`` batches of 8 x 256: exactly 80 flash
+               launches a step (each layer's forward and remat's
+               recompute), finite losses; step ms, tokens/s, the profiled
+               step's device busy ms, idle share and split (flash forward,
+               flash backward, matmuls, optimizer), peak memory.
+15. train_check — one step at full width and 2 layers, B 1 x 64, on the
+               card and on the CPU from the same parameters: loss within
+               1e-3, every leaf's gradient within 8% relative L2.
+16. train_restart — full width, 2 layers, B 2 x 128, 6 steps of
+               ``train()`` checkpointing every 3: a failure injected at step
+               4 restarts from step 3 and ends within 1e-4 of the clean
+               run's loss; a NaN-poisoned step is skipped, the state
+               bitwise kept.
+17. launch_train — ``python -m repro_torch.launch.train --arch minicpm-2b
+               --reduced --steps 14`` on the card: exit 0, loss dropping.
                Every phase's seconds follow it on a line of its own.
 
 Then one ``{"kernels": [...]}`` line (tree_gemm's launches split by phase
 under ``launches_by_phase``: main, service, sharded; the attention
-kernels' under ``launches_by_path``), and last ``{"ok":
-true, "device": {...}}``.  The script imports nothing of JAX or of the JAX package.
+kernels' under ``launches_by_path``, ``train`` among them), and last
+``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
+the JAX package.
 
 ``python3 chip_smoke.py --decode-cold`` runs phase 1 and only
 decode_attention's cold-L2 timings; a copy of this file in an unpacked
 earlier checkout times that checkout's kernel with the same timer.
+``python3 chip_smoke.py --train`` runs phases 1, 2 and 13-17 only.
 """
 
 from __future__ import annotations
@@ -201,6 +232,7 @@ import itertools
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2748,6 +2780,509 @@ def phase_vlm():
     return launches
 
 
+# -- phases 13-17, training -------------------------------------------------
+
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 256        # the launcher's defaults
+TRAIN_STEPS = 5                        # 1 warm-up, 3 timed, 1 profiled
+TRAIN_LR = 3e-3
+TRAIN_GRAD_REL_L2 = 0.08               # tests/test_torch_train_loss.py's
+TRAIN_LOSS_RTOL = 1e-3
+RESTART_LOSS_TOL = 1e-4                # tests/test_train_loop.py's
+LSE_TOL = 1e-4
+VJP_ATOL, VJP_RTOL = 3e-4, 1e-3        # tests/test_flash_vjp.py's
+# (name, (b, s, t, h, kv, d), causal, window, softcap): MiniCPM-2B's train
+# shape; Gemma-2 2B's local and global layers past the 4,096 window (D
+# 256, cap 50); bidirectional; cross with S != T; one token; S > T with a
+# window of 16, whose rows from 55 on see no key.
+LSE_CASES = [
+    ("minicpm_train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 36, 36, 64), True,
+     0, 0.0),
+    ("gemma2_local", (1, 4200, 4200, 8, 4, 256), True, 4096,
+     GEMMA2_SOFTCAP),
+    ("gemma2_global", (1, 4200, 4200, 8, 4, 256), True, 0, GEMMA2_SOFTCAP),
+    ("bidir", (2, 130, 130, 8, 2, 128), False, 0, 0.0),
+    ("cross", (2, 77, 150, 10, 2, 64), False, 0, 30.0),
+    ("one_token", (2, 1, 1, 8, 8, 128), True, 0, 0.0),
+    ("rows_see_no_key", (1, 200, 40, 4, 2, 64), True, 16, 0.0),
+]
+# the CPU flash-VJP tests' cases, float32 on the card: (b, s, t, h, kv, d,
+# mask kind, window, cap, block size)
+VJP_CASES = [
+    (2, 96, 96, 4, 2, 64, "window", 0, 0.0, 32),
+    (1, 64, 64, 4, 4, 64, "window", 16, 0.0, 32),
+    (1, 80, 80, 2, 1, 64, "window", 0, 20.0, 32),
+    (2, 64, 64, 4, 2, 64, "window", 24, 20.0, 32),
+    (1, 40, 40, 10, 2, 64, "causal", 0, 0.0, 512),
+    (2, 48, 48, 4, 2, 128, "bidir", 0, 0.0, 512),
+    (2, 24, 56, 4, 2, 64, "cross", 0, 30.0, 512),
+    (1, 70, 70, 4, 1, 64, "causal", 0, 0.0, 32),
+]
+
+
+def visible_rows(s, t, causal, window):
+    """[S] bool: the query rows that see at least one key."""
+    import torch
+    rows = torch.arange(s)
+    if not causal:
+        return torch.ones(s, dtype=torch.bool)
+    first = rows - (window - 1 if window > 0 else rows)
+    return first.clamp(min=0) < t
+
+
+def phase_train_kernels(flash_row):
+    """The flash kernel's lse against ``ref.py``'s (1e-4) over
+    ``LSE_CASES`` in float32 and bfloat16, with ``out`` within today's
+    bounds on every row that sees a key; the flash VJP's dq, dk, dv on the
+    card against autograd through the float32 plain version (3e-4 / 1e-3);
+    the scan wrappers refusing a gradient; then, at MiniCPM-2B's train
+    shape, lse's added device time and the plain backward's device time
+    against SDPA's forward and backward.  Adds the train shape's numbers
+    to ``flash_row["by_shape"]["train"]``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_ref, attention_with_lse_ref)
+    from repro_torch.kernels.rwkv6_scan import ops as w_ops
+    from repro_torch.kernels.ssd_scan import ops as s_ops
+    from repro_torch.models.attention import (flash_attention_bwd,
+                                              full_attention)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    worst_lse = 0.0
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for name, (b, s, t, h, kv, d), causal, window, cap in LSE_CASES:
+            q = randn((b, s, h, d), dtype)
+            k, v = randn((b, t, kv, d), dtype), randn((b, t, kv, d), dtype)
+            out, lse = f_ops.flash_attention_with_lse(q, k, v, causal, window,
+                                                      cap)
+            want_out, want_lse = attention_with_lse_ref(q, k, v, causal,
+                                                        window, cap)
+            torch.cuda.synchronize()
+            seen = visible_rows(s, t, causal, window).to(dev)
+            lse_err = float((lse - want_lse).abs().max())
+            out_err = float((out.float() - want_out.float())[:, seen]
+                            .abs().max())
+            blind_ok = bool((lse[:, :, ~seen] == -1e30).all())
+            emit({"phase": "train_kernels", "kernel": "flash_attention",
+                  "check": "lse", "case": name, "dtype": dname,
+                  "shape": {"q": [b, s, h, d], "kv": [b, t, kv, d]},
+                  "causal": causal, "window": window, "softcap": cap,
+                  "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+                  "out_max_abs_err": out_err, "out_tol": ATT_TOL[dname],
+                  "rows_seeing_no_key": int((~seen).sum()),
+                  "their_lse_is_-1e30": blind_ok})
+            if lse_err > LSE_TOL or not blind_ok:
+                fail(f"flash_attention lse {dname} {name}: off by {lse_err} "
+                     f"(rows that see no key at -1e30: {blind_ok})")
+            if out_err > ATT_TOL[dname]:
+                fail(f"flash_attention {dname} {name}: out with the lse off "
+                     f"by {out_err}")
+            worst_lse = max(worst_lse, lse_err)
+            del q, k, v, out, lse, want_out, want_lse
+
+    qwen = reduced_config(get_config("qwen2.5-14b"))
+    worst_grad = 0.0
+    for b, s, t, h, kv, d, kind, window, cap, block in VJP_CASES:
+        cfg = dataclasses.replace(qwen, attn_softcap=cap)
+        q, k, v = randn((b, s, h, d)), randn((b, t, kv, d)), \
+            randn((b, t, kv, d))
+        cot = randn((b, s, h, d))
+        mine = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = full_attention(cfg, *mine, mask_kind=kind, window=window,
+                             block_size=block)
+        (out * cot).sum().backward()
+        ref = [x.clone().requires_grad_() for x in (q, k, v)]
+        want = attention_ref(*ref, causal=kind in ("causal", "window"),
+                             window=window, softcap=cap)
+        (want * cot).sum().backward()
+        torch.cuda.synchronize()
+        errs = [float(((a.grad - r.grad).abs()
+                       - VJP_RTOL * r.grad.abs()).max())
+                for a, r in zip(mine, ref)]
+        emit({"phase": "train_kernels", "check": "flash_vjp",
+              "shape": {"q": [b, s, h, d], "kv": [b, t, kv, d]},
+              "mask": kind, "window": window, "softcap": cap,
+              "block_size": block,
+              "dq_dk_dv_excess_over_rtol": errs, "atol": VJP_ATOL,
+              "rtol": VJP_RTOL})
+        if max(errs) > VJP_ATOL:
+            fail(f"flash VJP {kind} {(b, s, t, h, kv, d)}: dq/dk/dv off "
+                 f"the float32 plain autograd by {errs}")
+        worst_grad = max(worst_grad, max(errs))
+
+    # the scans' kernels have no backward: under a gradient they refuse
+    refused = []
+    x = randn((1, 32, 2, 64)).requires_grad_()
+    for name, call in (
+            ("rwkv6_scan", lambda: w_ops.rwkv6_scan(
+                x, x, x, torch.full_like(x, 0.9), randn((2, 64)))),
+            ("ssd_scan", lambda: s_ops.ssd_scan(
+                x, randn((1, 32, 2)), torch.full((2,), -0.5, device=dev),
+                randn((1, 32, 16)), randn((1, 32, 16))))):
+        before = (w_ops.launches, s_ops.launches)
+        try:
+            call()
+        except RuntimeError as err:
+            refused.append(name)
+            emit({"phase": "train_kernels", "check": "refuses_gradient",
+                  "kernel": name, "message": str(err)})
+        if (w_ops.launches, s_ops.launches) != before:
+            fail(f"{name} launched under a gradient")
+    if refused != ["rwkv6_scan", "ssd_scan"]:
+        fail(f"scan wrappers under a gradient on the card: only {refused} "
+             f"refused")
+
+    # MiniCPM-2B's train shape: the launch with and without the lse, the
+    # plain backward, and SDPA's forward and backward on the same inputs
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, 36, 64
+    q, k, v = (randn((b, s, h, d), torch.bfloat16) for _ in range(3))
+    dout = randn((b, s, h, d), torch.bfloat16)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    # the launch without and with the lse, in turns (without, with, with,
+    # without), each the mean of its two device_ms
+    turns = {"without": [], "with": []}
+    for name in ("without", "with", "with", "without"):
+        turns[name].append(device_ms(lambda: flash_attention_cuda(
+            q, k, v, out, True, 0, 0.0, lse if name == "with" else None)))
+    no_lse, with_lse = (statistics.mean(turns[n]) for n in ("without",
+                                                            "with"))
+    out, lse = f_ops.flash_attention_with_lse(q, k, v, True, 0, 0.0)
+    bwd = device_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout, True,
+                                                0, 0.0, 512), runs=10)
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dh = dout.transpose(1, 2).contiguous()
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        torch.autograd.grad(o, (qh, kh, vh), dh)
+    lib = device_ms(sdpa_fwd_bwd, runs=10)
+    bound, by = flash_bound_ms(b, s, s, h, h, d, True, 2, PEAK_BF16_FLOPS)
+    row = {"shape": "train", "q": [b, s, h, d], "kv": [b, s, h, d],
+           "dtype": "bfloat16", "causal": True,
+           "device_ms": no_lse, "device_ms_with_lse": with_lse,
+           "lse_added_device_ms": with_lse - no_lse,
+           "lse_turns_device_ms": turns,
+           "bound_ms": bound, "bound_by": by,
+           "plain_ms": cuda_ms(lambda: attention_ref(q, k, v)),
+           "ms": cuda_ms(lambda: f_ops.flash_attention_with_lse(
+               q, k, v, True, 0, 0.0), runs=20),
+           "backward_device_ms": bwd,
+           "library_fwd_bwd_device_ms": lib,
+           "library": "SDPA forward + backward (causal)"}
+    emit({"phase": "train_kernels", "kernel": "flash_attention",
+          "timing": row})
+    flash_row["by_shape"]["train"] = row
+    flash_row["lse_max_abs_err"] = worst_lse
+    flash_row["vjp_worst_excess"] = worst_grad
+
+
+def train_shape_and_opt(steps):
+    """The launcher's optimizer for MiniCPM-2B over ``steps`` steps."""
+    from repro_torch.train.optimizer import AdamWConfig
+    return AdamWConfig(peak_lr=TRAIN_LR, schedule="wsd",
+                       warmup_steps=max(steps // 20, 5), total_steps=steps)
+
+
+def kernels_by_range(prof, names):
+    """{range name: [(kernel name, ms)]} over the profiler's CPU events of
+    ``names`` (record_function ranges) and everything under them."""
+    out = {n: [] for n in names}
+
+    def collect(e, acc):
+        for kern in getattr(e, "kernels", []):
+            acc.append((kern.name, kern.duration / 1e3))
+        for child in e.cpu_children:
+            collect(child, acc)
+    for e in prof.events():
+        if e.name in out:
+            collect(e, out[e.name])
+    return out
+
+
+def phase_train():
+    """MiniCPM-2B at full width and depth trains: float32 master weights,
+    remat on (as the launcher has it), WSD, B 8 x 256 tokens from
+    ``TokenStream``, ``TRAIN_STEPS`` steps of ``make_train_step``.  Each
+    step launches flash exactly 2 x 40 times (forward, remat's recompute);
+    every loss is finite.  Prints the step ms, tokens/s, the profiled
+    step's device busy ms, idle share and split (flash forward and
+    backward, matmuls, optimizer) and peak memory."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.models import build_model
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", remat=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM_SEED)
+    state = init_train_state(model, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in _leaves(state["params"]))
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    step_fn = make_train_step(model, train_shape_and_opt(TRAIN_STEPS))
+    losses, step_ms, launches = [], [], []
+    prof = None
+    for i in range(TRAIN_STEPS):
+        batch = stream.batch(i)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == TRAIN_STEPS - 1:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, metrics = step_fn(state, batch)
+                torch.cuda.synchronize()
+        else:
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(read_launches())
+        losses.append(float(metrics["loss"]))
+        emit({"phase": "train", "step": i, "ms": step_ms[-1],
+              "loss": losses[-1], "grad_norm": float(metrics["grad_norm"]),
+              "skipped": int(metrics["skipped"]),
+              "launches": launches[-1]})
+    want = {**dict.fromkeys(lm_kernel_ops(), 0),
+            "flash_attention": 2 * cfg.n_layers}
+    for i, got in enumerate(launches):
+        check_launches("train", got, want,
+                       f"step {i}: remat runs each layer's forward twice")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: a loss is not finite: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # device activities, without the record_function ranges' own device
+    # spans (user annotations), which would count their kernels twice
+    ranges = ("flash_attention_bwd", "adamw_update")
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.name not in ranges]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    if busy <= 0:
+        fail("train: the profiler recorded no device time")
+    flash_fwd = sum(e.time_range.elapsed_us() for e in device
+                    if re.search(r"\bflash_(wgmma|fwd)_kernel\b", e.name)) \
+        / 1e3
+    gemm = re.compile(r"gemm|sm90_xmma|cutlass|nvjet", re.I)
+    matmul_all = sum(e.time_range.elapsed_us() for e in device
+                     if gemm.search(e.name)) / 1e3
+    in_range = kernels_by_range(prof, ranges)
+    flash_bwd = sum(ms for _, ms in in_range["flash_attention_bwd"])
+    optimizer = sum(ms for _, ms in in_range["adamw_update"])
+    bwd_gemm = sum(ms for n, ms in in_range["flash_attention_bwd"]
+                   if gemm.search(n))
+    timed = sorted(step_ms[1:TRAIN_STEPS - 1])
+    median = statistics.median(timed)
+    split = {"flash_forward": flash_fwd, "flash_backward": flash_bwd,
+             "matmuls_outside_flash_backward": matmul_all - bwd_gemm,
+             "optimizer": optimizer}
+    split["other"] = busy - sum(split.values())
+    emit({"phase": "train", "step": "summary", "arch": TRAIN_ARCH,
+          "layers": cfg.n_layers, "params": n_params, "remat": True,
+          "schedule": "wsd", "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+          "init_seconds": init_s, "steps": TRAIN_STEPS, "step_ms": step_ms,
+          "median_step_ms": median,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
+          "profiled_step_ms": step_ms[-1],
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": 1.0 - busy / median,
+          "device_ms_split": split, "kernels_per_step": len(device),
+          "top_kernels_ms": [[n[:80], ms] for n, ms in sorted(
+              by_name.items(), key=lambda kv: -kv[1])[:15]],
+          "flash_launches_per_step": launches[0]["flash_attention"],
+          "peak_mem_gb": peak, "losses": losses})
+    del state, model
+    torch.cuda.empty_cache()
+    return {"flash_attention": sum(x["flash_attention"] for x in launches),
+            **{k: 0 for k in lm_kernel_ops() if k != "flash_attention"}}
+
+
+def phase_train_check():
+    """One train step of MiniCPM-2B at full width and LM_CHECK_LAYERS
+    layers (remat on), B 1 x 64 tokens, on the card and on the CPU from
+    the same float32 parameters: the loss within 1e-3 relative and every
+    leaf's gradient within 8% relative L2 (the CPU tests' tolerance), then
+    the step's updated parameters finite on both."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_state import (loss_and_grads,
+                                               make_train_step)
+    from repro_torch.train.tree import leaves_with_paths
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=LM_CHECK_LAYERS)
+    card = build_model(cfg, device="cuda", remat=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM_SEED + 1)
+    params = card.init_params(gen)
+    cpu = build_model(cfg, device="cpu", remat=True)
+    cpu_params = _to(params, "cpu")
+    batch = TokenStream(cfg.vocab_size, 64, 1, seed=5).batch(0)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss_c, grads_c = loss_and_grads(card, params, tb)
+    t0 = time.perf_counter()
+    loss_h, grads_h = loss_and_grads(cpu, cpu_params, tb)
+    cpu_s = time.perf_counter() - t0
+    worst, worst_key = -1.0, None
+    for (key, gc), (_, gh) in zip(leaves_with_paths(grads_c),
+                                  leaves_with_paths(grads_h)):
+        rel = float(torch.linalg.vector_norm(gc.cpu() - gh)
+                    / torch.linalg.vector_norm(gh).clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_key = rel, key
+    loss_rel = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    steps = {}
+    for name, model, p in (("card", card, params), ("cpu", cpu, cpu_params)):
+        state = {"params": p, "opt": adamw_init(p)}
+        _, metrics = make_train_step(model, train_shape_and_opt(1))(state,
+                                                                   batch)
+        steps[name] = {"loss": float(metrics["loss"]),
+                       "grad_norm": float(metrics["grad_norm"]),
+                       "finite": all(bool(torch.isfinite(x).all())
+                                     for x in _leaves(state["params"]))}
+    emit({"phase": "train_check", "layers": cfg.n_layers,
+          "tokens": [1, 64], "loss_card": float(loss_c),
+          "loss_cpu": float(loss_h), "loss_rel_err": loss_rel,
+          "loss_rtol": TRAIN_LOSS_RTOL, "worst_grad_rel_l2": worst,
+          "worst_leaf": worst_key, "grad_tol": TRAIN_GRAD_REL_L2,
+          "step": steps, "cpu_seconds": cpu_s})
+    if loss_rel > TRAIN_LOSS_RTOL:
+        fail(f"train_check: card loss {float(loss_c)} against the CPU's "
+             f"{float(loss_h)}")
+    if worst > TRAIN_GRAD_REL_L2:
+        fail(f"train_check: gradient {worst_key} off the CPU's by {worst} "
+             f"relative L2")
+    if not (steps["card"]["finite"] and steps["cpu"]["finite"]):
+        fail("train_check: a train step left non-finite parameters")
+    del card, params, cpu_params, grads_c, grads_h
+    torch.cuda.empty_cache()
+
+
+def phase_train_restart():
+    """Checkpoint restart on the card: MiniCPM-2B at full width, 2 layers,
+    B 2 x 128, 6 steps of ``train()`` with a checkpoint every 3 steps, a
+    clean run and one with a failure injected at step 4: the restarted
+    run resumes from step 3 and ends within 1e-4 of the clean run's final
+    loss.  Then a step with a poisoned (NaN) embedding is skipped and
+    leaves every parameter, moment and the step count bitwise as they
+    were.  Checkpoints go to a temporary directory, deleted after."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.distributed.fault_tolerance import FailureInjector
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import TrainLoopConfig, train
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
+    model = build_model(cfg, device="cuda", remat=True)
+    shape = ShapeConfig("restart", "train", 128, 2)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        for name, injector in (("clean", None),
+                               ("crashy", FailureInjector(fail_at=4))):
+            loop = TrainLoopConfig(n_steps=6, ckpt_root=f"{tmp}/{name}",
+                                   ckpt_every=3, log_every=1,
+                                   opt=train_shape_and_opt(6))
+            t0 = time.perf_counter()
+            stats = train(model, shape, loop, injector=injector)
+            runs[name] = {"seconds": time.perf_counter() - t0,
+                          "restarts": stats["restarts"],
+                          "resumed_from": stats["resumed_from"],
+                          "losses": [x for _, x in stats["losses"]]}
+            shutil.rmtree(f"{tmp}/{name}", ignore_errors=True)
+    diff = abs(runs["clean"]["losses"][-1] - runs["crashy"]["losses"][-1])
+    emit({"phase": "train_restart", "layers": cfg.n_layers,
+          "tokens": [2, 128], "runs": runs, "final_loss_abs_diff": diff,
+          "tol": RESTART_LOSS_TOL})
+    if runs["crashy"]["restarts"] != 1 \
+            or runs["crashy"]["resumed_from"] != [3]:
+        fail(f"train_restart: expected one restart from step 3, got "
+             f"{runs['crashy']}")
+    if not diff <= RESTART_LOSS_TOL:
+        fail(f"train_restart: final losses differ by {diff}")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM_SEED + 2)
+    state = init_train_state(model, gen)
+    state["params"]["embed"] = state["params"]["embed"] * float("nan")
+    before = [x.clone() for x in _leaves(state)]
+    _, metrics = make_train_step(model, train_shape_and_opt(6))(
+        state, {"tokens": np.zeros((2, 128), np.int32)})
+    kept = all(torch.equal(a, b) or (torch.isnan(a).all()
+                                     and torch.isnan(b).all())
+               for a, b in zip(before, _leaves(state)))
+    emit({"phase": "train_restart", "check": "nonfinite_skip",
+          "skipped": int(metrics["skipped"]),
+          "loss": float(metrics["loss"]), "state_bitwise_kept": kept,
+          "opt_step": int(state["opt"]["step"])})
+    if int(metrics["skipped"]) != 1 or not kept \
+            or int(state["opt"]["step"]) != 0:
+        fail("train_restart: the poisoned step was not skipped cleanly")
+    del state, before, model
+    torch.cuda.empty_cache()
+
+
+def phase_launch_train():
+    """``python -m repro_torch.launch.train --arch minicpm-2b --reduced
+    --steps 14 --ckpt <tmp>`` as a subprocess on the card: exits 0, and its
+    last logged loss is below its first."""
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               TRAIN_ARCH, "--reduced", "--steps", "14", "--ckpt", tmp]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                              cwd=ROOT, timeout=300)
+        seconds = time.perf_counter() - t0
+    losses = [float(m.group(1)) for m in
+              re.finditer(r"step\s+\d+ loss (\S+)", proc.stdout)]
+    emit({"phase": "launch_train", "cmd": " ".join(cmd[1:]),
+          "returncode": proc.returncode, "losses": losses,
+          "last_line": proc.stdout.strip().splitlines()[-1:],
+          "seconds": seconds})
+    if proc.returncode != 0:
+        fail(f"launch_train exited {proc.returncode}: {proc.stderr[-2000:]}")
+    if len(losses) < 2 or not losses[-1] < losses[0]:
+        fail(f"launch_train: the loss did not drop: {losses}")
+    if "on cuda" not in proc.stdout:
+        fail("launch_train: the launcher did not run on the card")
+
+
 def decode_gap_s(decode_row, lm_launches) -> float:
     """Launches x (device_ms - bound) of decode_attention over the LM
     paths timed at their shapes, in seconds: MiniCPM-2B's launches at its
@@ -2774,6 +3309,18 @@ def decode_gap_s(decode_row, lm_launches) -> float:
             ) / 1e3
 
 
+def train_phases(flash_row) -> dict:
+    """Phases 13-17 -> the train phase's kernel launches."""
+    import torch
+    timed("train_kernels", phase_train_kernels, flash_row)
+    torch.cuda.empty_cache()
+    launches = timed("train", phase_train)
+    timed("train_check", phase_train_check)
+    timed("train_restart", phase_train_restart)
+    timed("launch_train", phase_launch_train)
+    return launches
+
+
 def timed(name, fn, *args, **kw):
     """``fn(*args, **kw)``, then the phase's seconds on a line of its
     own."""
@@ -2797,6 +3344,9 @@ def main() -> None:
         phase_decode_cold()
         return
     timed("build", phase_build)
+    if sys.argv[1:] == ["--train"]:
+        train_phases({"by_shape": {}})
+        return
 
     from repro_torch.core.rules.nn_translation import CUDA_PAD
     from repro_torch.data import hospital_tables
@@ -2855,6 +3405,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     lm_launches["lm_vlm"] = timed("lm_vlm", phase_vlm)
     torch.cuda.empty_cache()
+
+    lm_launches["train"] = train_phases(flash_row)
 
     def on_paths(kernel, rows):
         by_path = {name: counts[kernel]

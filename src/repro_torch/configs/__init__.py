@@ -1,5 +1,7 @@
 """Per-architecture configs (plain data, copied from the JAX package)."""
 
-from .base import ModelConfig, get_config, list_archs, reduced_config
+from .base import (SHAPES, ModelConfig, ShapeConfig, get_config, list_archs,
+                   reduced_config)
 
-__all__ = ["ModelConfig", "get_config", "list_archs", "reduced_config"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "get_config",
+           "list_archs", "reduced_config"]

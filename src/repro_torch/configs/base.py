@@ -1,17 +1,20 @@
 """Architecture configuration, a plain-Python copy of the JAX package's
 ``configs/base.py``: :class:`ModelConfig`, ``get_config(name)``,
 ``list_archs()`` and ``reduced_config(cfg)`` (the CPU-test variant: same
-family, tiny dims).  Every architecture is a :class:`ModelConfig` in its own
-module under ``repro_torch.configs``; ``models.transformer.build_model``
+family, tiny dims), and the cell shapes :class:`ShapeConfig` / ``SHAPES``
+(the training launcher builds its own ``ShapeConfig``).  Every
+architecture is a :class:`ModelConfig` in its own module under
+``repro_torch.configs``; ``models.transformer.build_model``
 decides which of them the port can run.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
-__all__ = ["ModelConfig", "get_config", "reduced_config", "list_archs"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "get_config",
+           "reduced_config", "list_archs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +126,21 @@ class ModelConfig:
         active = (self.experts_per_token + self.n_shared_experts) * 3 * d * f
         return base + self.n_layers * active
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
 
 _ARCH_MODULES = {
     "hymba-1.5b": "hymba_1p5b",

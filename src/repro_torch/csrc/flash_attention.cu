@@ -11,7 +11,11 @@
 //   out_i = sum_j round_v(p_j) v_j / max(sum_j p_j, 1e-30),  p_j = exp(s_j - m)
 //
 // with the online softmax (running max m, running sum l, accumulator acc, all
-// float32) taken over tiles of 64 keys, as the TPU kernel does.  round_v
+// float32) taken over tiles of 64 keys, as the TPU kernel does.  Where the
+// caller passes an lse buffer (float32 [B,H,S], which is the JAX package's
+// [B,KV,G,S] read flat), each row's natural-log log-sum-exp
+// m + log(max(l, 1e-30)) goes there too, for the attention backward; a null
+// pointer writes nothing, so inference pays nothing for it.  round_v
 // rounds p to v's dtype before the P.V product, as the TPU kernel does
 // (p.astype(v.dtype)); the running sum l takes p unrounded.  The output is
 // written in q's dtype.
@@ -84,6 +88,7 @@ constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // The key range [k_lo, k_hi) that rows q0 .. q0 + rows - 1 can see.
 __device__ __forceinline__ void key_range(int q0, int rows, int Tn,
@@ -121,9 +126,9 @@ __global__ void __launch_bounds__(kWgThreads)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ out, int S, int Tn, int H,
-                   int KV, float scale, int causal, int window,
-                   float softcap) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int S, int Tn, int H, int KV, float scale, int causal,
+                   int window, float softcap) {
   constexpr int kPanels = D / 64;
   constexpr int kTileBytes = kPanels * sm90::kPanelBytes;
   extern __shared__ unsigned char smem_raw[];
@@ -320,13 +325,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         *reinterpret_cast<__nv_bfloat162*>(orow + p * 64 + 8 * j + cq) =
             __floats2bfloat162_rn(o[p][4 * j + 2 * r] / denom,
                                   o[p][4 * j + 2 * r + 1] / denom);
+    // m_run is in the log2 domain: lse = m ln 2 + ln l.  A row that saw no
+    // key keeps m = -1e30 (unscaled), which is the lse the plain version
+    // gives it (-1e30 + log l rounds to -1e30 in float32).
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[static_cast<long long>(bh) * S + q0 + row] =
+          m_run[r] == kNegInf ? kNegInf
+                              : m_run[r] * kLn2 + logf(denom);
   }
 }
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int B, int S, int Tn, int H, int KV, float scale, int causal,
-                 int window, float softcap, cudaStream_t stream) {
+                 float* lse, int B, int S, int Tn, int H, int KV,
+                 float scale, int causal, int window, float softcap,
+                 cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   const cuuint32_t box[3] = {64, kBQ, 1};
   const cuuint64_t q_dims[3] = {static_cast<cuuint64_t>(H) * D,
@@ -355,7 +368,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(static_cast<unsigned>(B * H),
                   static_cast<unsigned>((S + kBQ - 1) / kBQ));
   flash_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, Tn, H, KV, scale,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, S, Tn, H, KV, scale,
       causal, window, softcap);
   return cudaGetLastError();
 }
@@ -377,9 +390,9 @@ constexpr size_t smem_floats() {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int S,
-                 int Tn, int H, int KV, float scale, int causal, int window,
-                 float softcap) {
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int S, int Tn, int H, int KV,
+                 float scale, int causal, int window, float softcap) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* kvs = qs + D * kQS;
@@ -531,12 +544,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < kCols; ++j)
       ob[(q0 + r) * q_stride + tx + 16 * j] = acc[i][j] / denom;
   }
+  if (lse != nullptr)
+    for (int r = tid; r < rows; r += kThreads)
+      lse[static_cast<long long>(bh) * S + q0 + r] =
+          m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int Tn, int H, int KV, float scale, int causal,
-               int window, float softcap, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int S, int Tn, int H, int KV, float scale,
+               int causal, int window, float softcap, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -546,18 +563,19 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                   static_cast<unsigned>((S + kBQ - 1) / kBQ));
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, Tn, H, KV,
-      scale, causal, window, softcap);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, Tn, H,
+      KV, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
 template <int D>
 int launch(int is_bf16, const void* q, const void* k, const void* v,
-           void* out, int B, int S, int Tn, int H, int KV, float scale,
-           int causal, int window, float softcap, cudaStream_t stream) {
-  return is_bf16 ? launch_wgmma<D>(q, k, v, out, B, S, Tn, H, KV, scale,
+           void* out, float* lse, int B, int S, int Tn, int H, int KV,
+           float scale, int causal, int window, float softcap,
+           cudaStream_t stream) {
+  return is_bf16 ? launch_wgmma<D>(q, k, v, out, lse, B, S, Tn, H, KV, scale,
                                    causal, window, softcap, stream)
-                 : launch_f32<D>(q, k, v, out, B, S, Tn, H, KV, scale,
+                 : launch_f32<D>(q, k, v, out, lse, B, S, Tn, H, KV, scale,
                                  causal, window, softcap, stream);
 }
 
@@ -582,24 +600,27 @@ size_t flash_attention_smem_bytes(int D, int is_bf16) {
 
 // Launches on `stream`; allocates nothing and does not synchronize.
 // is_bf16 selects bfloat16 (1: the wgmma kernel; q, k, v 16-byte aligned)
-// or float32 (0: the CUDA-core kernel) for q, k, v and out.
+// or float32 (0: the CUDA-core kernel) for q, k, v and out.  lse, where
+// not null, receives each row's log-sum-exp, float32 [B,H,S].
 // Returns the cudaError_t of the launch (0 on success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int B, int S, int Tn, int H, int KV,
-                           int D, int is_bf16, float scale, int causal,
-                           int window, float softcap, void* stream) {
+                           void* out, void* lse, int B, int S, int Tn, int H,
+                           int KV, int D, int is_bf16, float scale,
+                           int causal, int window, float softcap,
+                           void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return cudaSuccess;
   if (Tn <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (D) {
     case 64:
-      return launch<64>(is_bf16, q, k, v, out, B, S, Tn, H, KV, scale,
+      return launch<64>(is_bf16, q, k, v, out, l, B, S, Tn, H, KV, scale,
                         causal, window, softcap, st);
     case 128:
-      return launch<128>(is_bf16, q, k, v, out, B, S, Tn, H, KV, scale,
+      return launch<128>(is_bf16, q, k, v, out, l, B, S, Tn, H, KV, scale,
                          causal, window, softcap, st);
     case 256:
-      return launch<256>(is_bf16, q, k, v, out, B, S, Tn, H, KV, scale,
+      return launch<256>(is_bf16, q, k, v, out, l, B, S, Tn, H, KV, scale,
                          causal, window, softcap, st);
     default:
       return cudaErrorInvalidValue;

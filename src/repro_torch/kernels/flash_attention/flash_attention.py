@@ -9,6 +9,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -27,8 +28,8 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                           f, i, i, f, p]
+    lib.flash_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                           i, f, i, i, f, p]
     lib.flash_attention_launch.restype = i
     lib.flash_attention_smem_bytes.argtypes = [i, i]
     lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
@@ -44,10 +45,12 @@ def smem_bytes(d: int, dtype: torch.dtype) -> int:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, causal: bool, window: int,
-                         softcap: float) -> None:
+                         softcap: float,
+                         lse: Optional[torch.Tensor] = None) -> None:
     """Launch the kernel on the current stream, writing ``out`` (shaped and
-    typed like ``q``).  The caller has checked devices, dtypes, shapes and
-    contiguity (``ops.flash_attention``).  The bfloat16 kernel reads q, k
+    typed like ``q``) and, where given, ``lse`` (float32 [B,H,S], contiguous:
+    each row's log-sum-exp; None writes none).  The caller has checked
+    devices, dtypes, shapes and contiguity (``ops.flash_attention``).  The bfloat16 kernel reads q, k
     and v through TMA tensor maps, whose base addresses must be 16-byte
     aligned (the row strides, H*D*2 and KV*D*2 bytes, are multiples of
     128 for every D taken)."""
@@ -62,9 +65,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, s, t, h, kv, d, int(q.dtype == torch.bfloat16),
-            1.0 / math.sqrt(d), int(causal), int(window), float(softcap),
-            stream)
+            None if lse is None else lse.data_ptr(), b, s, t, h, kv, d,
+            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d), int(causal),
+            int(window), float(softcap), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: "
                            f"{lib.flash_attention_error_string(err).decode()}")

@@ -9,11 +9,13 @@ is no fallback from one to the other.  ``launches`` counts kernel launches
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
-from .ref import attention_ref
+from .ref import attention_ref, attention_with_lse_ref
 
-__all__ = ["flash_attention", "launches"]
+__all__ = ["flash_attention", "flash_attention_with_lse", "launches"]
 
 launches = 0
 
@@ -59,15 +61,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``window > 0`` restricts causal attention to the last ``window``
     positions; 0 means unrestricted.  ``causal=False`` is bidirectional.
     """
-    global launches
     _check(q, k, v, window, softcap)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
+    return _launch(q, k, v, causal, window, softcap, with_lse=False)[0]
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention``'s output and each row's log-sum-exp, float32
+    [B,H,S] (the JAX package's [B,KV,G,S] read flat), which the attention
+    backward needs.  One kernel launch, as ``flash_attention``."""
+    _check(q, k, v, window, softcap)
+    if q.device.type == "cpu":
+        return attention_with_lse_ref(q, k, v, causal=causal, window=window,
+                                      softcap=softcap)
+    return _launch(q, k, v, causal, window, softcap, with_lse=True)
+
+
+def _launch(q, k, v, causal, window, softcap, with_lse):
+    global launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("flash_attention: the CUDA kernel has no "
+                           "backward; under a gradient go through "
+                           "models.attention.full_attention (the flash VJP)")
     from .flash_attention import flash_attention_cuda
+    b, s, h, _ = q.shape
     out = torch.empty_like(q)
-    flash_attention_cuda(q, k, v, out, causal, window, softcap)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    flash_attention_cuda(q, k, v, out, causal, window, softcap, lse)
     launches += 1
-    return out
+    return out, lse

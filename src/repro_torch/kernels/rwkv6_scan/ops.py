@@ -2,11 +2,13 @@
 
 A CUDA tensor launches the hand-written kernel (``rwkv6_scan.py``) or
 raises; a CPU tensor takes the plain version (``ref.py``), the counterpart
-of the JAX package running its Pallas kernel with ``interpret=True``.  There
-is no fallback from one to the other.  ``launches`` counts wrapper calls
-that launched the kernel (and nothing else), so a run can show that it went
-through the kernel: one a call, though the C entry point runs three passes
-(chunk-local states, the state pass across chunks, the outputs).
+of the JAX package running its Pallas kernel with ``interpret=True``. There
+is no fallback from one to the other. The kernel has no backward: on a CUDA
+tensor under a gradient the wrapper raises (see ``_refuse_grad``).
+``launches`` counts wrapper calls that launched the kernel (and nothing
+else), so a run can show that it went through the kernel: one a call, though
+the C entry point runs three passes (chunk-local states, the state pass
+across chunks, the outputs).
 
 Unlike the TPU kernel, which drops the state at the end of the sequence,
 both versions return it: the model's prefill hands it to the decode cache.
@@ -62,6 +64,18 @@ def _check(r, k, v, w, u, state) -> None:
                          f"{[str(x.device) for x in tensors]}")
 
 
+def _refuse_grad(*tensors: torch.Tensor) -> None:
+    """The CUDA kernel has no backward: its output would carry no
+    ``grad_fn`` and training would silently stop the gradient at the scan.
+    So on the card a call under a gradient raises; on the CPU autograd
+    differentiates the plain version."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("rwkv6_scan: the CUDA kernel has no backward, so "
+                           "RWKV-6 does not train on the card yet; run "
+                           "train_loss on the CPU, or call the kernel "
+                           "under torch.no_grad()")
+
+
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     """``x`` contiguous and on a 16-byte boundary, as the kernel loads 16
     bytes a thread: ``x`` itself where it is both, else a copy."""
@@ -83,6 +97,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return wkv6_scan_ref(r, k, v, w, u)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: no kernel for device {r.device}")
+    _refuse_grad(r, k, v, w, u)
     from .rwkv6_scan import rwkv6_scan_cuda, scratch_floats
     r, k, v, w, u = (_aligned(x) for x in (r, k, v, w, u))
     b, s, h, kk = r.shape

@@ -1,12 +1,14 @@
 """Wrapper for the SSD kernel.
 
-A CUDA tensor launches the hand-written kernel (``ssd_scan.py``) or
-raises; a CPU tensor takes the plain version (``ref.py``), the counterpart
-of the JAX package running its Pallas kernel with ``interpret=True``.  There
-is no fallback from one to the other.  ``launches`` counts wrapper calls
-that launched the kernel (and nothing else), so a run can show that it went
-through the kernel: one a call, though the C entry point runs three passes
-(chunk-local states, the state pass across chunks, the outputs).
+A CUDA tensor launches the hand-written kernel (``ssd_scan.py``) or raises;
+a CPU tensor takes the plain version (``ref.py``), the counterpart of the
+JAX package running its Pallas kernel with ``interpret=True``. There is no
+fallback from one to the other. The kernel has no backward: on a CUDA tensor
+under a gradient the wrapper raises (see ``_refuse_grad``). ``launches``
+counts wrapper calls that launched the kernel (and nothing else), so a run
+can show that it went through the kernel: one a call, though the C entry
+point runs three passes (chunk-local states, the state pass across chunks,
+the outputs).
 
 Unlike the TPU kernel, which drops the state at the end of the sequence,
 both versions return it: the model's prefill hands it to the decode cache.
@@ -71,6 +73,18 @@ def _check(x, dt, a, bmat, cmat, h0) -> None:
                          f"{[str(t.device) for t in tensors]}")
 
 
+def _refuse_grad(*tensors: torch.Tensor) -> None:
+    """The CUDA kernel has no backward: its output would carry no
+    ``grad_fn`` and training would silently stop the gradient at the scan.
+    So on the card a call under a gradient raises; on the CPU autograd
+    differentiates the plain version."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("ssd_scan: the CUDA kernel has no backward, so "
+                           "Hymba does not train on the card yet; run "
+                           "train_loss on the CPU, or call the kernel "
+                           "under torch.no_grad()")
+
+
 def _rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` [B,S,...] as the kernel reads it: contiguous within a token,
     one row stride from token to token across batch rows (a view into a
@@ -96,6 +110,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         return ssd_scan_ref(x, dt, a, bmat, cmat)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    _refuse_grad(x, dt, a, bmat, cmat)
     from .ssd_scan import scratch_floats, ssd_scan_cuda
     x, bmat, cmat = _rows(x), _rows(bmat), _rows(cmat)
     dt, a = dt.contiguous(), a.contiguous()

@@ -1,9 +1,9 @@
-"""LM assembly (the JAX package's ``models/transformer.py``, inference
-only): every family of ``configs`` behind one API — dense GQA (with
-gemma2's local/global alternation, soft caps, QK-norm, biases), mixture of
-experts, RWKV-6, Hymba (parallel attention and SSM heads), the
-encoder-decoder (bidirectional encoder, cross-attention decoder) and the
-vision-patch frontend.
+"""LM assembly (the JAX package's ``models/transformer.py``): every family
+of ``configs`` behind one API — dense GQA (with gemma2's local/global
+alternation, soft caps, QK-norm, biases), mixture of experts, RWKV-6,
+Hymba (parallel attention and SSM heads), the encoder-decoder
+(bidirectional encoder, cross-attention decoder) and the vision-patch
+frontend.
 
 ``LanguageModel(cfg, device)`` exposes:
 
@@ -19,6 +19,12 @@ vision-patch frontend.
   encoder;
 - ``decode_step(params, cache, tokens)``: one token for every batch row;
 - ``cache_specs(batch, max_len)``: shapes and dtypes of the decode cache;
+- ``train_loss(params, batch)``: next-token cross-entropy of a batch dict
+  (``tokens`` [B,S], and ``patch_embeds`` or ``src_embeds`` where the
+  family takes them), differentiable by ``torch.autograd``; with
+  ``remat=True`` each decoder and encoder layer's body is recomputed in the
+  backward (``torch.utils.checkpoint``), its bfloat16 parameter casts kept
+  outside, as the JAX package's ``jax.checkpoint`` does;
 - ``_embed_inputs``, ``_decoder_stack`` and ``_logits``: the pieces of a
   full forward, under the JAX package's names (``serve.speculative``
   verifies drafts through them).
@@ -32,6 +38,12 @@ decode, it does not (an RWKV layer's float32 output then carries on).
 Attention, the WKV6 recurrence and the SSD scan go through the kernel
 wrappers (``models.attention``, ``models.rwkv6``, ``models.ssm``):
 hand-written CUDA kernels on the card, their plain versions on the CPU.
+Under a gradient attention goes through the flash VJP
+(``attention.FlashAttention``); the scan kernels have no backward and
+refuse a gradient on the card, so RWKV-6 and Hymba train on the CPU only.
+The embedding's gradient is a stable-sort segment sum
+(``relational.ops.segment_sum``), not the atomic ``index_put_`` of
+indexing's backward, so a train step on the card is bitwise repeatable.
 
 The decode cache is heterogeneous per layer, as in the JAX package: k/v
 buffers of capacity ``max_len`` for global attention layers, ring buffers
@@ -47,8 +59,10 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..relational.ops import segment_sum
 from ..relational.table import resolve_device
 from . import attention as attn_mod
 from . import moe as moe_mod
@@ -81,6 +95,23 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), sc.float()
 
 
+class _EmbeddingLookup(torch.autograd.Function):
+    """``table[ids]`` whose backward sums each id's rows in the order they
+    occur (stable sort, then a segment sum), deterministic on the card."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        flat = grad.reshape(-1, grad.shape[-1])
+        return segment_sum(flat, ids.reshape(-1), ctx.rows), None
+
+
 def _dequantize_kv(q: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
     """int8 cache and its scales -> bfloat16 (the JAX decode's
     ``q.astype(bf16) * scale.astype(bf16)``)."""
@@ -92,14 +123,17 @@ class LanguageModel:
 
     ``device=None`` means the card and raises without one; pass
     ``device="cpu"`` to run on the CPU.  ``kv_cache_dtype`` is
-    ``torch.bfloat16`` or ``torch.int8``.  ``moe_counts``, when set to a
-    dict, gains the device tensors ``routed`` and ``dropped`` (the
-    (token, expert) pairs routed and dropped by capacity) over the MoE
-    layers the model runs."""
+    ``torch.bfloat16`` or ``torch.int8``.  ``remat`` recomputes each layer
+    in the backward of ``train_loss`` (it changes nothing without a
+    gradient).  ``moe_counts``, when set to a dict, gains the device tensors
+    ``routed`` and ``dropped`` (the (token, expert) pairs routed and
+    dropped by capacity) over the MoE layers the model runs; under remat
+    a layer's pairs count twice (its forward runs again)."""
 
     def __init__(self, cfg: ModelConfig, device: Any = None,
                  param_dtype: torch.dtype = torch.float32,
-                 kv_cache_dtype: torch.dtype = torch.bfloat16):
+                 kv_cache_dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False):
         if kv_cache_dtype not in _KV_DTYPES:
             raise ValueError(f"kv_cache_dtype {kv_cache_dtype}: the KV cache "
                              f"is one of {_KV_DTYPES}")
@@ -107,6 +141,7 @@ class LanguageModel:
         self.device = resolve_device(device)
         self.param_dtype = param_dtype
         self.kv_cache_dtype = kv_cache_dtype
+        self.remat = remat
         self.moe_counts: Optional[Dict[str, torch.Tensor]] = None
 
     # ------------------------------------------------------------------ params
@@ -171,7 +206,10 @@ class LanguageModel:
     # --------------------------------------------------------------- embedding
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B,S] -> h [B,S,D] bfloat16 (scaled in the param dtype)."""
-        h = params["embed"][tokens.to(self.device, torch.long)]
+        ids = tokens.to(self.device, torch.long)
+        table = params["embed"]
+        h = _EmbeddingLookup.apply(table, ids) if table.requires_grad \
+            and torch.is_grad_enabled() else table[ids]
         return (h * self.cfg.embed_scale).to(torch.bfloat16)
 
     def _embed_inputs(self, params, tokens: torch.Tensor,
@@ -304,8 +342,8 @@ class LanguageModel:
         for i, (lp, is_global) in enumerate(zip(params["layers"],
                                                 self._layer_flags())):
             cp = _cast(cross[i], torch.bfloat16) if cross else None
-            h, c = self._block_seq(_cast(lp, torch.bfloat16), is_global, h,
-                                   cp=cp, enc_out=enc_out)
+            h, c = self._layer(self._block_seq, _cast(lp, torch.bfloat16),
+                               is_global, h, cp=cp, enc_out=enc_out)
             h = h.to(torch.bfloat16)        # the JAX layer scan's carry
             if collect_cache:
                 caches.append(c)
@@ -315,19 +353,51 @@ class LanguageModel:
         """src [B,T,D] -> the encoder's output [B,T,D] bfloat16:
         bidirectional self-attention with RoPE, then the MLP, bfloat16
         between layers, then ``enc_norm``."""
-        cfg = self.cfg
         h = src.to(self.device, torch.bfloat16)
         for lp in params["enc_layers"]:
-            lp = _cast(lp, torch.bfloat16)
-            x = rms_norm(h, lp["ln1"], cfg.norm_eps)
-            q, k, v = attn_mod.project_qkv(cfg, lp["attn"], x)
-            out = attn_mod.full_attention(cfg, q, k, v, mask_kind="bidir")
-            b, s = out.shape[:2]
-            h = h + out.reshape(b, s, cfg.q_dim) @ lp["attn"]["wo"]
-            h = h + mlp_apply(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                              cfg.act)
-            h = h.to(torch.bfloat16)
-        return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+            h = self._layer(self._encoder_block, _cast(lp, torch.bfloat16),
+                            h).to(torch.bfloat16)
+        return rms_norm(h, params["enc_norm"], self.cfg.norm_eps)
+
+    def _encoder_block(self, lp, h: torch.Tensor) -> torch.Tensor:
+        """One bidirectional encoder layer (bfloat16 parameters)."""
+        cfg = self.cfg
+        x = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        q, k, v = attn_mod.project_qkv(cfg, lp["attn"], x)
+        out = attn_mod.full_attention(cfg, q, k, v, mask_kind="bidir")
+        b, s = out.shape[:2]
+        h = h + out.reshape(b, s, cfg.q_dim) @ lp["attn"]["wo"]
+        return h + mlp_apply(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                             cfg.act)
+
+    def _layer(self, fn, *args, **kw):
+        """``fn(*args, **kw)``, one layer's body; under a gradient with
+        ``remat`` it is checkpointed, so the backward runs it again (its
+        kernels launch twice) instead of keeping its activations."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return fn(*args, **kw)
+
+    # ------------------------------------------------------------------ train
+    def train_loss(self, params, batch: Dict[str, Any]) -> torch.Tensor:
+        """Mean next-token negative log-likelihood (float32 scalar) of
+        ``batch["tokens"]`` [B,S]: the encoder first where the family has
+        one (``batch["src_embeds"]`` [B,T,D]), the patch prefix
+        (``batch["patch_embeds"]`` [B,P,D], pixtral) dropped before the
+        head, log-softmax in float32 over ``logits[:, :-1]`` against
+        ``tokens[:, 1:]``."""
+        cfg = self.cfg
+        tokens = batch["tokens"].to(self.device, torch.long)
+        enc_out = self._encoder_stack(params, batch["src_embeds"]) \
+            if cfg.is_encdec else None
+        patches = batch.get("patch_embeds") \
+            if cfg.frontend == "vision_patches" else None
+        h, n_prefix = self._embed_inputs(params, tokens, patches)
+        h, _ = self._decoder_stack(params, h, enc_out=enc_out)
+        logits = self._logits(params, h[:, n_prefix:])
+        logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        ll = logp.gather(-1, tokens[:, 1:, None])[..., 0]
+        return -ll.mean()
 
     # ---------------------------------------------------------------- prefill
     def prefill(self, params, tokens: torch.Tensor,
@@ -495,8 +565,8 @@ class LanguageModel:
 
 def build_model(cfg: ModelConfig, device: Any = None,
                 param_dtype: torch.dtype = torch.float32,
-                kv_cache_dtype: torch.dtype = torch.bfloat16
-                ) -> LanguageModel:
+                kv_cache_dtype: torch.dtype = torch.bfloat16,
+                remat: bool = False) -> LanguageModel:
     """A ``LanguageModel`` for ``cfg`` (any of ``configs.list_archs()``)."""
     return LanguageModel(cfg, device=device, param_dtype=param_dtype,
-                         kv_cache_dtype=kv_cache_dtype)
+                         kv_cache_dtype=kv_cache_dtype, remat=remat)

@@ -37,7 +37,9 @@ def test_scan_covers_the_package():
     assert len(_FILES) > 30
     assert any(p.name == "codegen.py" for p in _FILES)
     assert ROOT / "src" / "repro_torch" / "core" / "clustering.py" in _FILES
-    for name in ("models/moe.py", "serve/kv_cache.py", "serve/speculative.py"):
+    for name in ("models/moe.py", "serve/kv_cache.py", "serve/speculative.py",
+                 "train/loop.py", "train/checkpoint.py",
+                 "distributed/fault_tolerance.py", "launch/train.py"):
         assert ROOT / "src" / "repro_torch" / name in _FILES
 
 

@@ -1,6 +1,8 @@
-"""The port's hand-written CUDA kernels (tree GEMM, flash attention, decode
-attention, the WKV6 and SSD scans) against their plain torch versions, on
-the card.  A CUDA kernel has no CPU mode, so every test here carries the
+"""The port's hand-written CUDA kernels (tree GEMM, flash attention with
+its log-sum-exp, decode attention, the WKV6 and SSD scans) against their
+plain torch versions, on the card, and the training path over them (the
+flash VJP, remat's launches, a repeatable step, the scans refusing a
+gradient).  A CUDA kernel has no CPU mode, so every test here carries the
 ``cuda`` marker and skips (inside a fixture) where no card is present.  The
 file imports no JAX, so it runs on a machine that has only the port:
 
@@ -16,7 +18,8 @@ from repro_torch.kernels.decode_attention.decode_attention import \
     split_layout
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     attention_with_lse_ref)
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -749,3 +752,185 @@ def test_kmeans_on_the_card_matches_cpu(cuda_device):
         assert torch.equal(ca.cpu(), ha)
         np.testing.assert_allclose(cc.cpu().numpy(), hc.numpy(), rtol=0,
                                    atol=1e-6)
+
+
+# -- training: the flash kernel's lse, the flash VJP, remat, scan refusal ----
+# (name, (b, s, t, h, kv, d), causal, window, softcap): MiniCPM-2B's train
+# shape; Gemma-2's local and global layers past the 4,096 window; a
+# bidirectional and a cross case with S != T; one token; S > T with a
+# window of 16, whose rows from 55 on see no key (lse -1e30 in both).
+_LSE_CASES = [
+    ("minicpm_train", (8, 256, 256, 36, 36, 64), True, 0, 0.0),
+    ("gemma2_local", (1, 4200, 4200, 8, 4, 256), True, 4096, 50.0),
+    ("gemma2_global", (1, 4200, 4200, 8, 4, 256), True, 0, 50.0),
+    ("bidir", (2, 130, 130, 8, 2, 128), False, 0, 0.0),
+    ("cross", (2, 77, 150, 10, 2, 64), False, 0, 30.0),
+    ("one_token", (2, 1, 1, 8, 8, 128), True, 0, 0.0),
+    ("rows_see_no_key", (1, 200, 40, 4, 2, 64), True, 16, 0.0),
+]
+_LSE_TOL = 1e-4
+
+
+def _visible_rows(s, t, causal, window):
+    """[S] bool: the query rows that see at least one key."""
+    rows = torch.arange(s)
+    if not causal:
+        return torch.ones(s, dtype=torch.bool)
+    first = rows - (window - 1 if window > 0 else rows)
+    return first.clamp(min=0) < t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", _LSE_CASES, ids=lambda c: c[0])
+def test_flash_attention_lse_matches_plain(case, dtype, cuda_device):
+    name, (b, s, t, h, kv, d), causal, window, cap = case
+    gen = torch.Generator().manual_seed(s + t + d)
+    q, k, v = (_randn(gen, (b, n, heads, d), dtype, cuda_device)
+               for n, heads in ((s, h), (t, kv), (t, kv)))
+    before = flash_ops.launches
+    out, lse = flash_ops.flash_attention_with_lse(q, k, v, causal, window,
+                                                  cap)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    want_out, want_lse = attention_with_lse_ref(q, k, v, causal, window, cap)
+    assert float((lse - want_lse).abs().max()) <= _LSE_TOL
+    seen = _visible_rows(s, t, causal, window).to(cuda_device)
+    assert bool((lse[:, :, ~seen] == -1e30).all())
+    assert float((out.float() - want_out.float())[:, seen].abs().max()) \
+        <= _ATT_TOL[dtype]
+    # the inference call writes the same output without the lse
+    assert torch.equal(out, flash_ops.flash_attention(q, k, v, causal,
+                                                      window, cap))
+
+
+# the CPU flash-VJP tests' cases: (b, s, t, h, kv, d, mask_kind, window,
+# cap, block_size)
+_VJP_CASES = [
+    (2, 96, 96, 4, 2, 64, "window", 0, 0.0, 32),
+    (1, 64, 64, 4, 4, 64, "window", 16, 0.0, 32),
+    (1, 80, 80, 2, 1, 64, "window", 0, 20.0, 32),
+    (2, 64, 64, 4, 2, 64, "window", 24, 20.0, 32),
+    (1, 40, 40, 10, 2, 64, "causal", 0, 0.0, 512),
+    (2, 48, 48, 4, 2, 128, "bidir", 0, 0.0, 512),
+    (2, 24, 56, 4, 2, 64, "cross", 0, 30.0, 512),
+    (1, 70, 70, 4, 1, 64, "causal", 0, 0.0, 32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _VJP_CASES,
+                         ids=lambda c: f"{c[6]}{c[7]}_cap{c[8]:g}_{c[1]}")
+def test_flash_vjp_on_the_card_matches_float32_plain_autograd(case,
+                                                              cuda_device):
+    """dq, dk, dv of the flash VJP (forward: the float32 kernel with its
+    lse) against autograd through the float32 plain version on the card,
+    within the JAX flash-VJP test's 3e-4 / 1e-3."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.attention import full_attention
+    b, s, t, h, kv, d, kind, window, cap, block = case
+    cfg = dataclasses.replace(reduced_config(get_config("qwen2.5-14b")),
+                              attn_softcap=cap)
+    gen = torch.Generator().manual_seed(s + h)
+    q, k, v = (_randn(gen, (b, n, heads, d), torch.float32, cuda_device)
+               for n, heads in ((s, h), (t, kv), (t, kv)))
+    cot = _randn(gen, (b, s, h, d), torch.float32, cuda_device)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = flash_ops.launches
+    out = full_attention(cfg, *leaves, mask_kind=kind, window=window,
+                         block_size=block)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = attention_ref(*ref_leaves, causal=kind in ("causal", "window"),
+                         window=window, softcap=cap)
+    (want * cot).sum().backward()
+    assert float((out - want).abs().max()) <= _ATT_TOL[torch.float32]
+    for got, ref in zip(leaves, ref_leaves):
+        torch.testing.assert_close(got.grad, ref.grad, atol=3e-4,
+                                   rtol=1e-3)
+
+
+def _small_lm(cuda_device, remat, n_layers=2):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(reduced_config(get_config("minicpm-2b")),
+                              d_head=64, n_layers=n_layers)
+    return build_model(cfg, device=cuda_device, remat=remat)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_train_step_launches_flash_once_a_layer_or_twice_under_remat(
+        remat, cuda_device):
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+    model = _small_lm(cuda_device, remat, n_layers=3)
+    state = init_train_state(model, torch.Generator(
+        device=cuda_device).manual_seed(0))
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, (2, 32)).astype(np.int32)}
+    step = make_train_step(model, AdamWConfig(peak_lr=1e-3))
+    before = flash_ops.launches
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert flash_ops.launches - before == 3 * (2 if remat else 1)
+    assert int(metrics["skipped"]) == 0
+    assert bool(torch.isfinite(metrics["loss"]))
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_is_bitwise_repeatable(cuda_device):
+    """Two steps from equal states on equal batches (many repeated tokens:
+    the embedding's gradient is a sorted segment sum, not atomics) give
+    bitwise equal parameters."""
+    import copy
+
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+    model = _small_lm(cuda_device, remat=True)
+    state = init_train_state(model, torch.Generator(
+        device=cuda_device).manual_seed(1))
+    twin = copy.deepcopy(state)
+    tokens = np.random.default_rng(1).integers(0, 8, (4, 64))
+    step = make_train_step(model, AdamWConfig(peak_lr=1e-3))
+    for s in (state, twin):
+        step(s, {"tokens": tokens.astype(np.int32)})
+    torch.cuda.synchronize()
+    from repro_torch.train.tree import leaves
+    for a, b in zip(leaves(state), leaves(twin)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_a_gradient_on_the_card(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    r, k, v = (_randn(gen, (1, 32, 2, 64), torch.float32, cuda_device)
+               for _ in range(3))
+    w = torch.full_like(r, 0.9)
+    u = _randn(gen, (2, 64), torch.float32, cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        wkv_ops.rwkv6_scan(r.requires_grad_(), k, v, w, u)
+    x = _randn(gen, (1, 32, 2, 64), torch.float32, cuda_device)
+    dt = torch.full((1, 32, 2), 0.1, device=cuda_device)
+    a = torch.full((2,), -0.5, device=cuda_device)
+    bm, cm = (_randn(gen, (1, 32, 16), torch.float32, cuda_device)
+              for _ in range(2))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_ops.ssd_scan(x, dt.requires_grad_(), a, bm, cm)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_ops.flash_attention(x.requires_grad_(), x, x)
+    with torch.no_grad():                 # no gradient: the kernels run
+        wkv_ops.rwkv6_scan(r, k, v, w, u)
+        ssd_ops.ssd_scan(x, dt, a, bm, cm)
+        flash_ops.flash_attention(x, x, x)
+    torch.cuda.synchronize()
