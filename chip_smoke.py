@@ -190,7 +190,8 @@ Phases (each prints JSON lines; any failure exits non-zero):
                ``out`` within 2e-5 / 2e-2 on every row that sees a key; the
                flash VJP's dq, dk, dv on the card against autograd through
                the float32 plain version (3e-4 / 1e-3); the scan wrappers
-               refusing a gradient; at the train shape, the launch with and
+               refusing a gradient when called directly; at the train
+               shape, the launch with and
                without the lse, the plain backward's device time and SDPA's
                forward + backward.
 14. train   — MiniCPM-2B at full width and depth (40 layers, float32 master
@@ -210,18 +211,48 @@ Phases (each prints JSON lines; any failure exits non-zero):
                bitwise kept.
 17. launch_train — ``python -m repro_torch.launch.train --arch minicpm-2b
                --reduced --steps 14`` on the card: exit 0, loss dropping.
+18. train_scans — RWKV-6 1.6B and Hymba 1.5B at full width and depth
+               (float32 master weights, AdamW, cosine, remat), 3 steps of
+               ``make_train_step`` each on ``TokenStream`` batches of 8 x
+               256, through the scans' autograd Functions (forward the
+               kernel, backward the plain chunked form): exactly 48
+               rwkv6_scan launches a step, and 64 ssd_scan plus 64 flash
+               launches a Hymba step; finite losses; step ms, tokens/s,
+               the profiled step's busy ms, idle share and split (scan
+               forward and backward, flash, matmuls, optimizer), peak
+               memory.  Then the Functions at those kernel shapes in
+               float32: one launch a call, the forward within 3e-4 of
+               ``ref.py``'s recurrence, every input's gradient within 1e-4
+               relative L2 of autograd through it; and one step of each
+               family at ``reduced_config``, the card against the CPU:
+               loss within 1e-3, every leaf within 8% relative L2 (Hymba's
+               dt_bias and d_skip 25%).
+19. moe_sharded — Qwen3-MoE's MoE layer at full width, float32, 4 x 256
+               tokens, on a mesh whose model axis is every local card
+               (one card: model = 1): ``moe_apply_sharded`` (psum) and
+               ``moe_apply_sharded_a2a`` against the local ``moe_apply``
+               within 1e-4 at capacity factor 8 (nothing dropped).
+20. launch  — ``python -m repro_torch.launch.serve --arch minicpm-2b``
+               (through its ``main``) on the card, launches exactly flash
+               2 a prefill and decode 2 a step; the dry-run cell
+               granite-moe-1b-a400m x prefill_32k on the single-pod H100
+               mesh and ``raven_dryrun``, each writing its JSON under
+               ``chiprun_out/dryrun``; ``rescale_state`` of train_restart's
+               newest checkpoint onto a mesh over every local card, every
+               leaf gathered back bitwise.
                Every phase's seconds follow it on a line of its own.
 
 Then one ``{"kernels": [...]}`` line (tree_gemm's launches split by phase
 under ``launches_by_phase``: main, service, sharded; the attention
-kernels' under ``launches_by_path``, ``train`` among them), and last
+kernels' under ``launches_by_path``, ``train``, ``train_scans`` and
+``launch`` among them), and last
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
 the JAX package.
 
 ``python3 chip_smoke.py --decode-cold`` runs phase 1 and only
 decode_attention's cold-L2 timings; a copy of this file in an unpacked
 earlier checkout times that checkout's kernel with the same timer.
-``python3 chip_smoke.py --train`` runs phases 1, 2 and 13-17 only.
+``python3 chip_smoke.py --train`` runs phases 1, 2 and 13-18 only.
 """
 
 from __future__ import annotations
@@ -236,10 +267,18 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# H100 SXM peaks (NVIDIA data sheet, 700 W): float32 on CUDA cores, dense
+# bfloat16 and int8 on tensor cores, HBM3; kept in the package, whose
+# dry-run's roofline uses them too.
+from repro_torch.kernels.cost import (PEAK_BF16_FLOPS,  # noqa: E402
+                                      PEAK_BYTES_PER_S, PEAK_FP32_FLOPS,
+                                      PEAK_INT8_OPS)
 N_ROWS = 1_000_000          # patients per table
 N_TREES, DEPTH = 64, 8
 FIT_ROWS = 50_000
@@ -259,12 +298,6 @@ QUERIES = {
          "GROUP BY gender",
 }
 STRATEGIES = ("traversal", "gemm", "cuda", "auto")
-# H100 SXM peaks (NVIDIA data sheet, 700 W): float32 on CUDA cores, dense
-# bfloat16 on tensor cores, HBM3.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_INT8_OPS = 1979e12
-PEAK_BYTES_PER_S = 3.35e12
 DEVICE_RUNS = 50            # back-to-back launches a device_ms spans
 
 # The LM paths, each a model at full width served by InferenceEngine with
@@ -3187,16 +3220,16 @@ def phase_train_check():
     torch.cuda.empty_cache()
 
 
-def phase_train_restart():
+def phase_train_restart(keep_dir):
     """Checkpoint restart on the card: MiniCPM-2B at full width, 2 layers,
     B 2 x 128, 6 steps of ``train()`` with a checkpoint every 3 steps, a
     clean run and one with a failure injected at step 4: the restarted
     run resumes from step 3 and ends within 1e-4 of the clean run's final
     loss.  Then a step with a poisoned (NaN) embedding is skipped and
     leaves every parameter, moment and the step count bitwise as they
-    were.  Checkpoints go to a temporary directory, deleted after."""
-    import tempfile
-
+    were.  The clean run's checkpoints go to ``keep_dir`` (the launch
+    phase rescales them), the other's to a temporary directory, deleted
+    after."""
     import numpy as np
     import torch
 
@@ -3213,7 +3246,8 @@ def phase_train_restart():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         for name, injector in (("clean", None),
                                ("crashy", FailureInjector(fail_at=4))):
-            loop = TrainLoopConfig(n_steps=6, ckpt_root=f"{tmp}/{name}",
+            root = keep_dir if name == "clean" else f"{tmp}/{name}"
+            loop = TrainLoopConfig(n_steps=6, ckpt_root=root,
                                    ckpt_every=3, log_every=1,
                                    opt=train_shape_and_opt(6))
             t0 = time.perf_counter()
@@ -3222,7 +3256,8 @@ def phase_train_restart():
                           "restarts": stats["restarts"],
                           "resumed_from": stats["resumed_from"],
                           "losses": [x for _, x in stats["losses"]]}
-            shutil.rmtree(f"{tmp}/{name}", ignore_errors=True)
+            if name != "clean":
+                shutil.rmtree(root, ignore_errors=True)
     diff = abs(runs["clean"]["losses"][-1] - runs["crashy"]["losses"][-1])
     emit({"phase": "train_restart", "layers": cfg.n_layers,
           "tokens": [2, 128], "runs": runs, "final_loss_abs_diff": diff,
@@ -3260,7 +3295,6 @@ def phase_launch_train():
     --steps 14 --ckpt <tmp>`` as a subprocess on the card: exits 0, and its
     last logged loss is below its first."""
     import os
-    import tempfile
     with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
@@ -3281,6 +3315,395 @@ def phase_launch_train():
         fail(f"launch_train: the loss did not drop: {losses}")
     if "on cuda" not in proc.stdout:
         fail("launch_train: the launcher did not run on the card")
+
+
+SCAN_TRAIN_ARCHS = ("rwkv6-1.6b", "hymba-1.5b")
+SCAN_TRAIN_STEPS = 3                   # 1 warm-up, 1 timed, 1 profiled
+# the scans' Functions on the card against autograd through ref.py's
+# float32 recurrences (reductions in other orders on the card)
+SCAN_GRAD_REL = 1e-4
+SSM_HEAD_LEAVES = ("['dt_bias']", "['d_skip']")
+TRAIN_GRAD_REL_L2_SSM_HEAD = 0.25      # tests/test_torch_train_loss.py's
+MOE_SHARDED_ATOL = 1e-4                # tests/test_moe_variants.py's
+MOE_SHARDED_CF = 8.0                   # ... at which nothing is dropped
+DRYRUN_CELL = ("granite-moe-1b-a400m", "prefill_32k")
+
+
+def scan_launches_per_step(cfg) -> dict:
+    """Each layer's scan (and Hymba's attention) launches twice a step
+    under remat: the forward and its recompute in the backward; the
+    scans' backward is plain torch."""
+    want = dict.fromkeys(lm_kernel_ops(), 0)
+    if cfg.rwkv:
+        want["rwkv6_scan"] = 2 * cfg.n_layers
+    else:
+        want["ssd_scan"] = want["flash_attention"] = 2 * cfg.n_layers
+    return want
+
+
+def train_scan_family(arch) -> dict:
+    """One scan family at full width and depth, remat, B 8 x 256, cosine
+    (the launcher's schedule for it), SCAN_TRAIN_STEPS steps: exact
+    launches a step, finite losses; step ms, tokens/s, the profiled
+    step's busy ms, idle share and split, peak memory."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", remat=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM_SEED)
+    state = init_train_state(model, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in _leaves(state["params"]))
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    step_fn = make_train_step(model, AdamWConfig(
+        peak_lr=TRAIN_LR, schedule="cosine", warmup_steps=5,
+        total_steps=SCAN_TRAIN_STEPS))
+    losses, step_ms, launches = [], [], []
+    for i in range(SCAN_TRAIN_STEPS):
+        batch = stream.batch(i)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == SCAN_TRAIN_STEPS - 1:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, metrics = step_fn(state, batch)
+                torch.cuda.synchronize()
+        else:
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(read_launches())
+        losses.append(float(metrics["loss"]))
+        emit({"phase": "train_scans", "arch": arch, "step": i,
+              "ms": step_ms[-1], "loss": losses[-1],
+              "grad_norm": float(metrics["grad_norm"]),
+              "launches": launches[-1]})
+    want = scan_launches_per_step(cfg)
+    for i, got in enumerate(launches):
+        check_launches(f"train_scans {arch}", got, want,
+                       f"step {i}: remat runs each layer's forward twice")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train_scans {arch}: a loss is not finite: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ranges = ("rwkv6_scan_bwd", "ssd_scan_bwd", "flash_attention_bwd",
+              "adamw_update")
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.name not in ranges]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    if busy <= 0:
+        fail(f"train_scans {arch}: the profiler recorded no device time")
+
+    def named(pattern):
+        return sum(e.time_range.elapsed_us() for e in device
+                   if re.search(pattern, e.name)) / 1e3
+    in_range = kernels_by_range(prof, ranges)
+    gemm = re.compile(r"gemm|sm90_xmma|cutlass|nvjet", re.I)
+    bwd_ms = {n: sum(ms for _, ms in in_range[n]) for n in ranges}
+    bwd_gemm = sum(ms for n in ranges[:3] for k, ms in in_range[n]
+                   if gemm.search(k))
+    split = {"scan_forward": named(r"\b(wkv6|ssd)_(local|state|output)"
+                                   r"_kernel\b"),
+             "scan_backward": bwd_ms["rwkv6_scan_bwd"]
+             + bwd_ms["ssd_scan_bwd"],
+             "flash_forward": named(r"\bflash_(wgmma|fwd)_kernel\b"),
+             "flash_backward": bwd_ms["flash_attention_bwd"],
+             "matmuls_outside_backward_ranges":
+                 named(gemm.pattern) - bwd_gemm,
+             "optimizer": bwd_ms["adamw_update"]}
+    split["other"] = busy - sum(split.values())
+    timed_ms = step_ms[1]
+    emit({"phase": "train_scans", "arch": arch, "step": "summary",
+          "layers": cfg.n_layers, "params": n_params, "remat": True,
+          "schedule": "cosine", "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+          "init_seconds": init_s, "steps": SCAN_TRAIN_STEPS,
+          "step_ms": step_ms, "timed_step_ms": timed_ms,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (timed_ms / 1e3),
+          "profiled_step_ms": step_ms[-1],
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": 1.0 - busy / timed_ms,
+          "device_ms_split": split,
+          "scan_backward_share_of_busy": split["scan_backward"] / busy,
+          "kernels_per_step": len(device),
+          "launches_per_step": launches[0], "peak_mem_gb": peak,
+          "losses": losses})
+    del state, model
+    torch.cuda.empty_cache()
+    return {k: sum(x[k] for x in launches) for k in want}
+
+
+def scan_function_grads() -> None:
+    """``WKV6Scan`` and ``SSDScan`` on the card at the train path's kernel
+    shapes (RWKV-6: B 8, S 256, 32 heads of 64; Hymba: 50 SSM heads of 64,
+    state 16), float32: one launch a call, the forward within SCAN_TOL of
+    ``ref.py``'s recurrence and every input's gradient within
+    SCAN_GRAD_REL relative L2 of autograd through it."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rwkv6_scan import ops as w_ops
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
+    from repro_torch.kernels.ssd_scan import ops as s_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models.rwkv6 import WKV6Scan
+    from repro_torch.models.ssm import SSDScan
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    cases = {
+        "rwkv6_scan": (WKV6Scan, wkv6_scan_ref, w_ops, [
+            0.5 * randn(b, s, 32, 64), 0.5 * randn(b, s, 32, 64),
+            0.5 * randn(b, s, 32, 64),
+            torch.exp(-torch.exp(0.5 * randn(b, s, 32, 64) - 1.0)),
+            0.3 * randn(32, 64)], [randn(b, s, 32, 64),
+                                   randn(b, 32, 64, 64)]),
+        "ssd_scan": (SSDScan, ssd_scan_ref, s_ops, [
+            randn(b, s, 50, 64), F.softplus(0.5 * randn(b, s, 50) - 1.0),
+            -torch.exp(0.5 * randn(50)), randn(b, s, 16), randn(b, s, 16)],
+            [randn(b, s, 50, 64), randn(b, 50, 64, 16)]),
+    }
+    for name, (fn, ref, ops, inputs, cots) in cases.items():
+        def grads(f):
+            xs = [x.clone().requires_grad_() for x in inputs]
+            y, st = f(*xs)
+            ((y * cots[0]).sum() + (st * cots[1]).sum()).backward()
+            return y.detach(), st.detach(), [x.grad for x in xs]
+        before = ops.launches
+        y, st, got = grads(fn.apply)
+        launched = ops.launches - before
+        y_ref, st_ref, want = grads(ref)
+        torch.cuda.synchronize()
+        fwd_err = max(float((y - y_ref).abs().max()),
+                      float((st - st_ref).abs().max()))
+        rel = [float((g - w).norm() / w.norm().clamp_min(1e-30))
+               for g, w in zip(got, want)]
+        emit({"phase": "train_scans", "check": "function_grads",
+              "kernel": name, "shapes": [list(x.shape) for x in inputs],
+              "launches": launched, "forward_max_abs_err": fwd_err,
+              "forward_tol": SCAN_TOL, "grad_rel_l2": rel,
+              "grad_tol": SCAN_GRAD_REL})
+        if launched != 1:
+            fail(f"{name}: the Function launched the kernel {launched} "
+                 f"times")
+        if fwd_err > SCAN_TOL or max(rel) > SCAN_GRAD_REL:
+            fail(f"{name}: the Function's forward off by {fwd_err} or its "
+                 f"gradients by {rel}")
+        del inputs, cots, got, want
+
+
+def scan_families_card_vs_cpu() -> None:
+    """One remat train step's loss and gradients of RWKV-6 and Hymba at
+    ``reduced_config`` (d_head 64; RWKV-6 at width 128, 2 heads), the card
+    against the CPU from the same float32 parameters, per leaf within
+    tests/test_torch_train_loss.py's tolerances (8%; Hymba's dt_bias and
+    d_skip 25%); the loss within TRAIN_LOSS_RTOL."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.train.train_state import loss_and_grads
+    from repro_torch.train.tree import leaves_with_paths
+    for arch in SCAN_TRAIN_ARCHS:
+        over = dict(d_model=128, n_heads=2, n_kv_heads=2, d_head=64) \
+            if arch.startswith("rwkv6") else dict(d_head=64)
+        cfg = dataclasses.replace(reduced_config(get_config(arch)), **over)
+        card = build_model(cfg, device="cuda", remat=True)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(LM_SEED + 3)
+        params = card.init_params(gen)
+        cpu = build_model(cfg, device="cpu", remat=True)
+        batch = {k: torch.from_numpy(v) for k, v in TokenStream(
+            cfg.vocab_size, 64, 2, seed=6).batch(0).items()}
+        loss_c, grads_c = loss_and_grads(card, params, batch)
+        loss_h, grads_h = loss_and_grads(cpu, _to(params, "cpu"), batch)
+        worst, worst_key = -1.0, None
+        for (key, gc), (_, gh) in zip(leaves_with_paths(grads_c),
+                                      leaves_with_paths(grads_h)):
+            tol = TRAIN_GRAD_REL_L2_SSM_HEAD \
+                if key.endswith(SSM_HEAD_LEAVES) else TRAIN_GRAD_REL_L2
+            rel = float(torch.linalg.vector_norm(gc.cpu() - gh)
+                        / torch.linalg.vector_norm(gh).clamp_min(1e-30))
+            if rel / tol > worst:
+                worst, worst_key = rel / tol, (key, rel, tol)
+        loss_rel = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+        emit({"phase": "train_scans", "check": "card_vs_cpu", "arch": arch,
+              "reduced": True, "loss_card": float(loss_c),
+              "loss_cpu": float(loss_h), "loss_rel_err": loss_rel,
+              "worst_leaf_rel_l2_over_tol": worst,
+              "worst_leaf": worst_key})
+        if loss_rel > TRAIN_LOSS_RTOL or worst > 1.0:
+            fail(f"train_scans card vs CPU {arch}: loss off by {loss_rel}, "
+                 f"worst leaf {worst_key}")
+
+
+def phase_train_scans() -> dict:
+    """RWKV-6 1.6B and Hymba 1.5B train on the card through their scans'
+    Functions, then the Functions' gradients and the card against the
+    CPU -> the phase's kernel launches."""
+    out = dict.fromkeys(lm_kernel_ops(), 0)
+    for arch in SCAN_TRAIN_ARCHS:
+        for k, n in train_scan_family(arch).items():
+            out[k] += n
+    scan_function_grads()
+    scan_families_card_vs_cpu()
+    return out
+
+
+def phase_moe_sharded() -> None:
+    """Qwen3-MoE's MoE layer at full width (128 experts, top-8, d 2048,
+    d_ff 768), float32, 4 x 256 tokens, on a (data=1, model=every local
+    card) mesh: the psum and all-to-all paths against the local
+    ``moe_apply`` at the capacity factor where nothing is dropped, within
+    MOE_SHARDED_ATOL; each path's ms."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.layers import init_params
+    from repro_torch.models.moe import (moe_apply, moe_apply_sharded,
+                                        moe_apply_sharded_a2a, moe_params)
+    cfg = get_config("qwen3-moe-30b-a3b")
+    mesh = make_local_mesh(1, torch.cuda.device_count())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM_SEED + 4)
+    p = init_params(moe_params(cfg), gen, torch.float32, "cuda")
+    x = 0.5 * torch.randn((4, 256, cfg.d_model), generator=gen,
+                          device="cuda")
+    local = moe_apply(cfg, p, x, capacity_factor=MOE_SHARDED_CF)
+    rows = {"local_ms": cuda_ms(lambda: moe_apply(
+        cfg, p, x, capacity_factor=MOE_SHARDED_CF))}
+    for name, fn in (("psum", moe_apply_sharded),
+                     ("a2a", moe_apply_sharded_a2a)):
+        def call():
+            return fn(cfg, p, x, mesh, ("data",),
+                      capacity_factor=MOE_SHARDED_CF)
+        out = call()
+        torch.cuda.synchronize()
+        err = float((out - local).abs().max())
+        rows[name] = {"max_abs_err": err, "ms": cuda_ms(call),
+                      "bitwise": bool(torch.equal(out, local))}
+        if not err <= MOE_SHARDED_ATOL:
+            fail(f"moe_sharded {name}: off the local moe_apply by {err}")
+    emit({"phase": "moe_sharded", "arch": cfg.name,
+          "mesh": dict(mesh.shape), "tokens": [4, 256],
+          "experts_per_shard": cfg.n_experts // mesh.shape["model"],
+          "capacity_factor": MOE_SHARDED_CF, "atol": MOE_SHARDED_ATOL,
+          **rows})
+    del p, x, local
+    torch.cuda.empty_cache()
+
+
+def phase_launch(ckpt_root) -> dict:
+    """``python -m repro_torch.launch.serve --arch minicpm-2b`` driven
+    through its ``main`` on the card with every launch counted (flash once
+    a layer a prefill, decode once a layer a step); the dry-run cell
+    DRYRUN_CELL on the single-pod mesh and ``raven_dryrun``, each writing
+    its JSON under ``chiprun_out/dryrun``; ``rescale_state`` of the
+    train_restart phase's newest checkpoint onto a mesh over every local
+    card, every leaf gathered back bitwise equal to its host restore ->
+    the serve launcher's kernel launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.elastic import rescale_state
+    from repro_torch.launch import dryrun, raven_dryrun
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.checkpoint import restore_checkpoint
+    from repro_torch.train.train_state import abstract_train_state
+    from repro_torch.train.tree import leaves_with_paths
+    zero_launches()
+    t0 = time.perf_counter()
+    served = serve_launcher.main(["--arch", TRAIN_ARCH])
+    serve_s = time.perf_counter() - t0
+    launches = read_launches()
+    cfg = serve_launcher.launch_config(TRAIN_ARCH, True)
+    want = {**dict.fromkeys(lm_kernel_ops(), 0),
+            "flash_attention": served["prefills"] * cfg.n_layers,
+            "decode_attention": served["decode_steps"] * cfg.n_layers}
+    emit({"phase": "launch", "entry": "serve", "arch": TRAIN_ARCH,
+          "served": served, "launches": launches, "seconds": serve_s})
+    check_launches("launch serve", launches, want,
+                   "flash a layer a prefill, decode a layer a step")
+    if not served["device"].startswith("cuda"):
+        fail(f"launch serve ran on {served['device']}")
+
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    t0 = time.perf_counter()
+    cell = dryrun.run_cell(*DRYRUN_CELL, False, out_dir)
+    cell_s = time.perf_counter() - t0
+    emit({"phase": "launch", "entry": "dryrun", "cell": list(DRYRUN_CELL),
+          "status": cell["status"], "mesh": cell.get("mesh"),
+          "n_chips": cell.get("n_chips"),
+          "hlo_cost_per_device": cell.get("hlo_cost_per_device"),
+          "roofline": cell.get("roofline"),
+          "kernels_global": cell.get("cost_detail", {})
+          .get("kernels_global"), "seconds": cell_s})
+    if cell["status"] != "ok" or not cell["roofline"]["compute_s"] > 0:
+        fail(f"launch dryrun: {cell}")
+    t0 = time.perf_counter()
+    raven = raven_dryrun.main(["--out", str(out_dir)])
+    emit({"phase": "launch", "entry": "raven_dryrun",
+          "n_rows": raven["n_rows"], "roofline": raven["roofline"],
+          "hlo_cost_per_device": raven["hlo_cost_per_device"],
+          "seconds": time.perf_counter() - t0})
+    if raven["status"] != "ok" \
+            or raven["cost_detail"]["kernels"]["tree_gemm"]["calls"] != 1:
+        fail(f"launch raven_dryrun: {raven['status']}")
+
+    rcfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
+    model = build_model(rcfg, device="meta", remat=True)
+    like = abstract_train_state(model)
+    axes = model.param_logical_axes()
+    logical = {"params": axes, "opt": {"m": axes, "v": axes, "step": ()}}
+    mesh = make_local_mesh(1, torch.cuda.device_count())
+    t0 = time.perf_counter()
+    placed, step, _ = rescale_state(ckpt_root, like, mesh,
+                                    logical_axes=logical)
+    torch.cuda.synchronize()
+    rescale_s = time.perf_counter() - t0
+    host, _, _ = restore_checkpoint(ckpt_root, like, step, device="cpu")
+    rules = sharding.train_rules(mesh)
+    same, n_leaves, nbytes = True, 0, 0
+    for (key, want_leaf), (_, grid), axes in zip(
+            leaves_with_paths(host), leaves_with_paths(placed),
+            sharding.axes_leaves(logical)):
+        spec = sharding.logical_to_pspec(axes, rules)
+        if any(s.device.type != "cuda" for s in grid.reshape(-1)):
+            fail(f"rescale_state: a shard of {key} is not on the card")
+        same &= torch.equal(sharding.gather(grid, mesh, spec, "cpu"),
+                            want_leaf)
+        n_leaves += 1
+        nbytes += want_leaf.numel() * want_leaf.element_size()
+    emit({"phase": "launch", "entry": "rescale_state", "step": step,
+          "mesh": dict(mesh.shape), "leaves": n_leaves, "bytes": nbytes,
+          "bitwise": same, "seconds": rescale_s})
+    if not same:
+        fail("rescale_state: a leaf did not come back bitwise")
+    del placed, host
+    torch.cuda.empty_cache()
+    return launches
 
 
 def decode_gap_s(decode_row, lm_launches) -> float:
@@ -3309,15 +3732,18 @@ def decode_gap_s(decode_row, lm_launches) -> float:
             ) / 1e3
 
 
-def train_phases(flash_row) -> dict:
-    """Phases 13-17 -> the train phase's kernel launches."""
+def train_phases(flash_row, ckpt_dir) -> dict:
+    """Phases 13-18 -> {phase: its kernel launches}; train_restart's clean
+    checkpoints stay in ``ckpt_dir``."""
     import torch
     timed("train_kernels", phase_train_kernels, flash_row)
     torch.cuda.empty_cache()
-    launches = timed("train", phase_train)
+    launches = {"train": timed("train", phase_train)}
     timed("train_check", phase_train_check)
-    timed("train_restart", phase_train_restart)
+    timed("train_restart", phase_train_restart, ckpt_dir)
     timed("launch_train", phase_launch_train)
+    torch.cuda.empty_cache()
+    launches["train_scans"] = timed("train_scans", phase_train_scans)
     return launches
 
 
@@ -3335,17 +3761,16 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on the card only")
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        fail("src/repro_torch not found next to chip_smoke.py")
-    sys.path.insert(0, str(ROOT / "src"))
 
     smi = phase_device()
     if sys.argv[1:] == ["--decode-cold"]:
         phase_decode_cold()
         return
     timed("build", phase_build)
+    ckpt = tempfile.TemporaryDirectory(prefix="chip_smoke_rescale_")
     if sys.argv[1:] == ["--train"]:
-        train_phases({"by_shape": {}})
+        train_phases({"by_shape": {}}, ckpt.name)
+        ckpt.cleanup()
         return
 
     from repro_torch.core.rules.nn_translation import CUDA_PAD
@@ -3406,7 +3831,10 @@ def main() -> None:
     lm_launches["lm_vlm"] = timed("lm_vlm", phase_vlm)
     torch.cuda.empty_cache()
 
-    lm_launches["train"] = train_phases(flash_row)
+    lm_launches.update(train_phases(flash_row, ckpt.name))
+    timed("moe_sharded", phase_moe_sharded)
+    lm_launches["launch"] = timed("launch", phase_launch, ckpt.name)
+    ckpt.cleanup()
 
     def on_paths(kernel, rows):
         by_path = {name: counts[kernel]

@@ -2,7 +2,9 @@
 ``configs/base.py``: :class:`ModelConfig`, ``get_config(name)``,
 ``list_archs()`` and ``reduced_config(cfg)`` (the CPU-test variant: same
 family, tiny dims), and the cell shapes :class:`ShapeConfig` / ``SHAPES``
-(the training launcher builds its own ``ShapeConfig``).  Every
+(the training launcher builds its own ``ShapeConfig``), and the cells the
+dry-run covers: ``cell_skips()`` (with the JAX package's reasons, word for
+word) and ``runnable_cells()``.  Every
 architecture is a :class:`ModelConfig` in its own module under
 ``repro_torch.configs``; ``models.transformer.build_model``
 decides which of them the port can run.
@@ -14,7 +16,8 @@ import dataclasses
 from typing import Dict, List, Tuple
 
 __all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "get_config",
-           "reduced_config", "list_archs"]
+           "reduced_config", "kernel_reduced_config", "list_archs",
+           "runnable_cells", "cell_skips"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,3 +196,38 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         ssm_state=min(cfg.ssm_state, 4) if cfg.ssm_state else 0,
         n_frontend_tokens=8 if cfg.n_frontend_tokens else 0,
     )
+
+
+def kernel_reduced_config(cfg: ModelConfig) -> ModelConfig:
+    """``reduced_config`` at the kernels' head size, the port's launchers'
+    reduced config: ``d_head`` 64 (the attention kernels' smallest, the
+    WKV kernel's only one; the JAX package's reduced configs use 16) and,
+    for RWKV-6, ``n_heads = d_model // 64``."""
+    cfg = dataclasses.replace(reduced_config(cfg), d_head=64)
+    if cfg.rwkv:
+        cfg = dataclasses.replace(cfg, n_heads=cfg.d_model // 64,
+                                  n_kv_heads=cfg.d_model // 64)
+    return cfg
+
+
+def cell_skips() -> Dict[Tuple[str, str], str]:
+    """(arch, shape) -> reason, for the 8 documented skips."""
+    skips: Dict[Tuple[str, str], str] = {}
+    for arch in list_archs():
+        cfg = get_config(arch)
+        if not cfg.sub_quadratic:
+            skips[(arch, "long_500k")] = (
+                "pure full-attention architecture: 512k-token single-step "
+                "decode requires sub-quadratic sequence mixing "
+                "(DESIGN.md §3)")
+    return skips
+
+
+def runnable_cells() -> List[Tuple[str, str]]:
+    skips = cell_skips()
+    cells = []
+    for arch in list_archs():
+        for shape in SHAPES:
+            if (arch, shape) not in skips:
+                cells.append((arch, shape))
+    return cells

@@ -13,12 +13,17 @@ The split layout comes from the cache's length T alone
 partials from ``torch.empty``: the wrapper reads no length on the host and
 never synchronizes, so a call can be captured in a CUDA graph and replayed
 with new lengths and cache contents.
+
+A ``meta`` tensor is evaluated abstractly: the call returns empty outputs
+of the right shapes and dtypes and reports its analytic work to
+``kernels.cost`` (the dry-run's cost counter); any other device raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import cost
 from .ref import decode_attention_ref
 
 __all__ = ["decode_attention", "launches"]
@@ -81,6 +86,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, cache_len,
                                     softcap=softcap)
+    if q.device.type == "meta":
+        work = cost.decode_cost(q, k_cache, v_cache)
+        cost.report("decode_attention", work["ops"], work["bytes"])
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device "
                          f"{q.device}")

@@ -5,6 +5,10 @@ raises; a CPU tensor takes the plain version (``ref.py``), the counterpart
 of the JAX package running its Pallas kernel with ``interpret=True``.  There
 is no fallback from one to the other.  ``launches`` counts kernel launches
 (and nothing else), so a run can show that it went through the kernel.
+
+A ``meta`` tensor is evaluated abstractly: the call returns empty outputs
+of the right shapes and dtypes and reports its analytic work to
+``kernels.cost`` (the dry-run's cost counter); any other device raises.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from .. import cost
 from .ref import attention_ref, attention_with_lse_ref
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "launches"]
@@ -65,6 +70,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
+    if q.device.type == "meta":
+        return _abstract(q, k, v, causal, window, with_lse=False)[0]
     return _launch(q, k, v, causal, window, softcap, with_lse=False)[0]
 
 
@@ -79,7 +86,19 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return attention_with_lse_ref(q, k, v, causal=causal, window=window,
                                       softcap=softcap)
+    if q.device.type == "meta":
+        return _abstract(q, k, v, causal, window, with_lse=True)
     return _launch(q, k, v, causal, window, softcap, with_lse=True)
+
+
+def _abstract(q, k, v, causal, window, with_lse):
+    """The meta route: empty outputs and the call's work reported."""
+    b, s, h, _ = q.shape
+    work = cost.flash_cost(q, k, v, causal, window, with_lse)
+    cost.report("flash_attention", work["ops"], work["bytes"])
+    lse = torch.empty((b, h, s), dtype=torch.float32, device="meta") \
+        if with_lse else None
+    return torch.empty_like(q), lse
 
 
 def _launch(q, k, v, causal, window, softcap, with_lse):

@@ -3,12 +3,14 @@
 A CUDA tensor launches the hand-written kernel (``rwkv6_scan.py``) or
 raises; a CPU tensor takes the plain version (``ref.py``), the counterpart
 of the JAX package running its Pallas kernel with ``interpret=True``. There
-is no fallback from one to the other. The kernel has no backward: on a CUDA
-tensor under a gradient the wrapper raises (see ``_refuse_grad``).
-``launches`` counts wrapper calls that launched the kernel (and nothing
-else), so a run can show that it went through the kernel: one a call, though
-the C entry point runs three passes (chunk-local states, the state pass
-across chunks, the outputs).
+is no fallback from one to the other. The kernel has no backward of its
+own: called directly on a CUDA tensor under a gradient the wrapper raises
+(see ``_refuse_grad``); the model trains through ``models.rwkv6.WKV6Scan``,
+whose forward is this wrapper and whose backward differentiates the plain
+chunked form. ``launches`` counts wrapper calls that launched the kernel
+(and nothing else), so a run can show that it went through the kernel: one
+a call, though the C entry point runs three passes (chunk-local states, the
+state pass across chunks, the outputs).
 
 Unlike the TPU kernel, which drops the state at the end of the sequence,
 both versions return it: the model's prefill hands it to the decode cache.
@@ -17,6 +19,10 @@ its state with the plain recurrence (``ref.wkv6_scan_ref``).  The inputs
 reach the kernel in their own dtypes: r, k, v and u share one of float32
 and bfloat16, which the kernel widens in registers; w, the decay, is
 float32, as the model computes it.
+
+A ``meta`` tensor is evaluated abstractly: the call returns empty outputs
+of the right shapes and dtypes and reports its analytic work to
+``kernels.cost`` (the dry-run's cost counter); any other device raises.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import cost
 from .ref import wkv6_scan_ref
 
 __all__ = ["rwkv6_scan", "launches", "HEAD_SIZE"]
@@ -65,15 +72,15 @@ def _check(r, k, v, w, u, state) -> None:
 
 
 def _refuse_grad(*tensors: torch.Tensor) -> None:
-    """The CUDA kernel has no backward: its output would carry no
-    ``grad_fn`` and training would silently stop the gradient at the scan.
-    So on the card a call under a gradient raises; on the CPU autograd
-    differentiates the plain version."""
+    """The CUDA kernel has no backward: a direct call's output would carry
+    no ``grad_fn`` and training would silently stop the gradient at the
+    scan.  So on the card a direct call under a gradient raises (the model
+    goes through ``WKV6Scan``, whose forward runs with grad mode off); on the
+    CPU autograd differentiates the plain version."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("rwkv6_scan: the CUDA kernel has no backward, so "
-                           "RWKV-6 does not train on the card yet; run "
-                           "train_loss on the CPU, or call the kernel "
-                           "under torch.no_grad()")
+        raise RuntimeError("rwkv6_scan: the CUDA kernel has no backward; "
+                           "train through models.rwkv6.WKV6Scan, or call "
+                           "the kernel under torch.no_grad()")
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -95,6 +102,13 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(r, k, v, w, u, state)
     if r.device.type == "cpu":
         return wkv6_scan_ref(r, k, v, w, u)
+    if r.device.type == "meta":
+        work = cost.wkv6_cost(r, k, v, w, u)
+        cost.report("rwkv6_scan", work["ops"], work["bytes"])
+        b, _, h, kk = r.shape
+        return (torch.empty(r.shape, dtype=torch.float32, device="meta"),
+                torch.empty((b, h, kk, kk), dtype=torch.float32,
+                            device="meta"))
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: no kernel for device {r.device}")
     _refuse_grad(r, k, v, w, u)

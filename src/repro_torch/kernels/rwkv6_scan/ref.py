@@ -7,8 +7,9 @@ is held against, and the model's one-token decode step.
 
 ``wkv6_chunked_ref`` mirrors the CUDA kernel's chunk-parallel decomposition
 (``csrc/rwkv6_scan.cu``) pass for pass, with its chunk length and exponent
-rules, so the CPU tests can pin the kernel's algorithm; nothing on the
-model's path calls it."""
+rules, so the CPU tests can pin the kernel's algorithm.  It is also the
+form the model's gradient differentiates: the backward of ``models.rwkv6``'s
+autograd Function recomputes it under autograd."""
 
 from __future__ import annotations
 

@@ -3,12 +3,14 @@
 A CUDA tensor launches the hand-written kernel (``ssd_scan.py``) or raises;
 a CPU tensor takes the plain version (``ref.py``), the counterpart of the
 JAX package running its Pallas kernel with ``interpret=True``. There is no
-fallback from one to the other. The kernel has no backward: on a CUDA tensor
-under a gradient the wrapper raises (see ``_refuse_grad``). ``launches``
-counts wrapper calls that launched the kernel (and nothing else), so a run
-can show that it went through the kernel: one a call, though the C entry
-point runs three passes (chunk-local states, the state pass across chunks,
-the outputs).
+fallback from one to the other. The kernel has no backward of its own:
+called directly on a CUDA tensor under a gradient the wrapper raises (see
+``_refuse_grad``); the model trains through ``models.ssm.SSDScan``, whose
+forward is this wrapper and whose backward differentiates the plain chunked
+form. ``launches`` counts wrapper calls that launched the kernel (and
+nothing else), so a run can show that it went through the kernel: one a
+call, though the C entry point runs three passes (chunk-local states, the
+state pass across chunks, the outputs).
 
 Unlike the TPU kernel, which drops the state at the end of the sequence,
 both versions return it: the model's prefill hands it to the decode cache.
@@ -20,6 +22,10 @@ a is float32, as the model computes it.  x, bmat and cmat may be views into
 one wider per-token row, as the model splits them, and are not copied.
 ``a`` must be <= 0 (the model's a = -exp(a_log)); the wrapper does not
 check it, since that would read the card.
+
+A ``meta`` tensor is evaluated abstractly: the call returns empty outputs
+of the right shapes and dtypes and reports its analytic work to
+``kernels.cost`` (the dry-run's cost counter); any other device raises.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import cost
 from .ref import ssd_scan_ref
 
 __all__ = ["ssd_scan", "launches", "MAX_HEAD_DIM", "MAX_STATE"]
@@ -74,15 +81,15 @@ def _check(x, dt, a, bmat, cmat, h0) -> None:
 
 
 def _refuse_grad(*tensors: torch.Tensor) -> None:
-    """The CUDA kernel has no backward: its output would carry no
-    ``grad_fn`` and training would silently stop the gradient at the scan.
-    So on the card a call under a gradient raises; on the CPU autograd
-    differentiates the plain version."""
+    """The CUDA kernel has no backward: a direct call's output would carry
+    no ``grad_fn`` and training would silently stop the gradient at the
+    scan.  So on the card a direct call under a gradient raises (the model
+    goes through ``SSDScan``, whose forward runs with grad mode off); on the
+    CPU autograd differentiates the plain version."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("ssd_scan: the CUDA kernel has no backward, so "
-                           "Hymba does not train on the card yet; run "
-                           "train_loss on the CPU, or call the kernel "
-                           "under torch.no_grad()")
+        raise RuntimeError("ssd_scan: the CUDA kernel has no backward; train "
+                           "through models.ssm.SSDScan, or call the "
+                           "kernel under torch.no_grad()")
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -108,6 +115,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     _check(x, dt, a, bmat, cmat, h0)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, a, bmat, cmat)
+    if x.device.type == "meta":
+        work = cost.ssd_cost(x, dt, a, bmat, cmat)
+        cost.report("ssd_scan", work["ops"], work["bytes"])
+        b, _, h, p = x.shape
+        return (torch.empty(x.shape, dtype=torch.float32, device="meta"),
+                torch.empty((b, h, p, bmat.shape[2]), dtype=torch.float32,
+                            device="meta"))
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     _refuse_grad(x, dt, a, bmat, cmat)

@@ -8,8 +8,9 @@ step.
 
 ``ssd_chunked_ref`` mirrors the CUDA kernel's chunk-parallel decomposition
 (``csrc/ssd_scan.cu``) pass for pass, with its chunk length and exponent
-rules, so the CPU tests can pin the kernel's algorithm; nothing on the
-model's path calls it."""
+rules, so the CPU tests can pin the kernel's algorithm.  It is also the
+form the model's gradient differentiates: the backward of ``models.ssm``'s
+autograd Function recomputes it under autograd."""
 
 from __future__ import annotations
 

@@ -10,6 +10,10 @@ kernel.
 The kernel runs ``gates . c`` on the int8 tensor cores and gates by a
 gather of x at each node's feature, so it takes its own operands, derived
 from the ensemble once and kept with it (``kernel_operands``).
+
+A ``meta`` tensor is evaluated abstractly: the call returns empty outputs
+of the right shapes and dtypes and reports its analytic work to
+``kernels.cost`` (the dry-run's cost counter); any other device raises.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from ...ml.hummingbird import DeviceEnsemble, EnsembleGemm
 from ...ml.tree import reciprocal_f32
+from .. import cost
 from .ref import tree_gemm_ref
 
 __all__ = ["tree_gemm", "launches", "kernel_operands", "KernelOperands",
@@ -149,6 +154,12 @@ def tree_gemm(ensemble, x: torch.Tensor) -> torch.Tensor:
                           device=x.device)
         tree_gemm_cuda(x, operands, ens.e, out)
         launches += 1
+    elif x.device.type == "meta":
+        out = torch.empty((x.shape[0], ens.e.shape[2]), dtype=torch.float32,
+                          device="meta")
+        work = cost.tree_gemm_cost(*x.shape, ens.a.shape[0], ens.a.shape[2],
+                                   ens.c.shape[2], ens.e.shape[2])
+        cost.report("tree_gemm", work["ops"], work["bytes"])
     else:
         raise ValueError(f"tree_gemm: no kernel for device {x.device}")
     # The JAX wrapper divides by n_trees under jit, which XLA turns into a

@@ -5,17 +5,15 @@ defaults: sequence length 256, batch 8, peak learning rate 3e-3, the WSD
 schedule for ``minicpm-2b`` (cosine otherwise) with warmup max(steps / 20,
 5) and decay over the run, layer remat unless ``--reduced``.  It trains on
 the card (``--device cuda``, the default, raises without one) unless
-``--device cpu`` is given.  ``--reduced`` trains ``reduced_config`` of the
-arch with ``d_head`` 64, the smallest head dim the attention kernels take
-(the JAX package's reduced configs use 16).  ``--mesh`` is accepted with
-the JAX package's choices and, as there, changes nothing.  RWKV-6 and
-Hymba train on the CPU only: their scan kernels have no backward yet.
+``--device cpu`` is given.  ``--reduced`` trains the arch's reduced config
+at the kernels' head size (``configs.kernel_reduced_config``: ``d_head``
+64, where the JAX package's reduced configs use 16).  ``--mesh`` is
+accepted with the JAX package's choices and, as there, changes nothing.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 import tempfile
 from typing import List, Optional
@@ -40,14 +38,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    from ..configs import ShapeConfig, get_config, reduced_config
+    from ..configs import ShapeConfig, get_config, kernel_reduced_config
     from ..models import build_model
     from ..train.loop import TrainLoopConfig, train
     from ..train.optimizer import AdamWConfig
 
     cfg = get_config(args.arch)
     if args.reduced:
-        cfg = dataclasses.replace(reduced_config(cfg), d_head=64)
+        cfg = kernel_reduced_config(cfg)
     model = build_model(cfg, device=args.device, remat=not args.reduced)
     shape = ShapeConfig("cli", "train", args.seq_len, args.batch)
     schedule = "wsd" if args.arch == "minicpm-2b" else "cosine"

@@ -36,15 +36,17 @@ _NEG_INF = -1e30
 
 def attention_params(cfg) -> Dict:
     d = cfg.d_model
-    p = {"wq": dense_init(d, cfg.q_dim), "wk": dense_init(d, cfg.kv_dim),
-         "wv": dense_init(d, cfg.kv_dim), "wo": dense_init(cfg.q_dim, d)}
+    p = {"wq": dense_init((d, "embed"), (cfg.q_dim, "heads")),
+         "wk": dense_init((d, "embed"), (cfg.kv_dim, "kv")),
+         "wv": dense_init((d, "embed"), (cfg.kv_dim, "kv")),
+         "wo": dense_init((cfg.q_dim, "heads"), (d, "embed"))}
     if cfg.qkv_bias:
-        p["bq"] = dense_init(cfg.q_dim, init="zeros")
-        p["bk"] = dense_init(cfg.kv_dim, init="zeros")
-        p["bv"] = dense_init(cfg.kv_dim, init="zeros")
+        p["bq"] = dense_init((cfg.q_dim, "heads"), init="zeros")
+        p["bk"] = dense_init((cfg.kv_dim, "kv"), init="zeros")
+        p["bv"] = dense_init((cfg.kv_dim, "kv"), init="zeros")
     if cfg.qk_norm:
-        p["q_norm"] = dense_init(cfg.d_head, init="zeros")
-        p["k_norm"] = dense_init(cfg.d_head, init="zeros")
+        p["q_norm"] = dense_init((cfg.d_head, None), init="zeros")
+        p["k_norm"] = dense_init((cfg.d_head, None), init="zeros")
     return p
 
 

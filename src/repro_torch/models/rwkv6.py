@@ -9,9 +9,12 @@ ddlerp mixing, and a squared-ReLU channel-mix.
 
 A prefill (no state given, any length, one token included) goes through
 the WKV6 kernel wrapper (``kernels/rwkv6_scan``): the hand-written CUDA
-kernel on the card, its plain version on the CPU.  A decode step (a state
-given) runs the recurrence step in plain torch (the JAX decode runs no
-kernel either: its chunked form at chunk 1).
+kernel on the card, its plain version on the CPU.  Under a gradient it goes
+through :class:`WKV6Scan`, whose forward is that same wrapper call and whose
+backward differentiates the plain chunked form (the JAX package trains
+through its chunked form too: the Pallas kernel has no backward).  A decode
+step (a state given) runs the recurrence step in plain torch (the JAX
+decode runs no kernel either: its chunked form at chunk 1).
 
 Mixed dtypes follow the JAX package's promotion: the WKV output is float32,
 so everything after it in the block (the output projection, the residual,
@@ -28,11 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rwkv6_scan import ops as scan_ops
-from ..kernels.rwkv6_scan.ref import wkv6_scan_ref
-from .layers import dense_init, rms_norm
+from ..kernels.rwkv6_scan.ref import wkv6_chunked_ref, wkv6_scan_ref
+from .layers import dense_init, rms_norm, scan_vjp
 
 __all__ = ["rwkv_params", "rwkv_time_mix", "rwkv_channel_mix",
-           "rwkv_state_specs"]
+           "rwkv_state_specs", "WKV6Scan"]
 
 _DDLERP_RANK = 32
 _DECAY_RANK = 64
@@ -43,26 +46,27 @@ def rwkv_params(cfg) -> Dict:
     f = cfg.d_ff
     return {
         # time-mix
-        "mu_x": dense_init(d, init="zeros"),
-        "mu_rkvwg": dense_init(5, d, init="zeros"),
-        "ddlerp_w1": dense_init(d, 5 * _DDLERP_RANK),
-        "ddlerp_w2": dense_init(5, _DDLERP_RANK, d),
-        "decay_base": dense_init(d, init="zeros", scale=0.0),
-        "decay_w1": dense_init(d, _DECAY_RANK),
-        "decay_w2": dense_init(_DECAY_RANK, d),
-        "bonus_u": dense_init(d, init="zeros"),
-        "wr": dense_init(d, d),
-        "wk": dense_init(d, d),
-        "wv": dense_init(d, d),
-        "wg": dense_init(d, d),
-        "wo": dense_init(d, d),
-        "ln_x": dense_init(d, init="zeros"),
+        "mu_x": dense_init((d, None), init="zeros"),
+        "mu_rkvwg": dense_init((5, None), (d, None), init="zeros"),
+        "ddlerp_w1": dense_init((d, "embed"), (5 * _DDLERP_RANK, None)),
+        "ddlerp_w2": dense_init((5, None), (_DDLERP_RANK, None),
+                                (d, "embed")),
+        "decay_base": dense_init((d, None), init="zeros", scale=0.0),
+        "decay_w1": dense_init((d, "embed"), (_DECAY_RANK, None)),
+        "decay_w2": dense_init((_DECAY_RANK, None), (d, "embed")),
+        "bonus_u": dense_init((d, None), init="zeros"),
+        "wr": dense_init((d, "embed"), (d, "heads")),
+        "wk": dense_init((d, "embed"), (d, "heads")),
+        "wv": dense_init((d, "embed"), (d, "heads")),
+        "wg": dense_init((d, "embed"), (d, "heads")),
+        "wo": dense_init((d, "heads"), (d, "embed")),
+        "ln_x": dense_init((d, None), init="zeros"),
         # channel-mix
-        "cm_mu_k": dense_init(d, init="zeros"),
-        "cm_mu_r": dense_init(d, init="zeros"),
-        "cm_wk": dense_init(d, f),
-        "cm_wv": dense_init(f, d),
-        "cm_wr": dense_init(d, d),
+        "cm_mu_k": dense_init((d, None), init="zeros"),
+        "cm_mu_r": dense_init((d, None), init="zeros"),
+        "cm_wk": dense_init((d, "embed"), (f, "mlp")),
+        "cm_wv": dense_init((f, "mlp"), (d, "embed")),
+        "cm_wr": dense_init((d, "embed"), (d, "mlp")),
     }
 
 
@@ -95,6 +99,26 @@ def _ddlerp(p: Dict, x: torch.Tensor, xs: torch.Tensor):
     return [mixed[:, :, i] for i in range(5)]
 
 
+class WKV6Scan(torch.autograd.Function):
+    """The WKV6 scan with a gradient: the forward is one
+    ``scan_ops.rwkv6_scan`` call (the kernel on the card) and saves its
+    inputs; the backward recomputes the plain chunked form
+    (``ref.wkv6_chunked_ref``) under autograd and differentiates it,
+    inside a profiler range named ``rwkv6_scan_bwd``.  Returns (y, final
+    state); either output may go unused (its gradient arrives as None)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        return scan_ops.rwkv6_scan(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        with torch.profiler.record_function("rwkv6_scan_bwd"):
+            return scan_vjp(wkv6_chunked_ref, ctx, (dy, dstate))
+
+
 def rwkv_time_mix(cfg, p: Dict, x: torch.Tensor,
                   state: Optional[Dict] = None
                   ) -> Tuple[torch.Tensor, Dict]:
@@ -112,7 +136,10 @@ def rwkv_time_mix(cfg, p: Dict, x: torch.Tensor,
     g = F.silu(_mm(xg, p["wg"]))
     u = p["bonus_u"].reshape(h, hd)
     w = w.reshape(b, s, h, hd)
-    if state is None:
+    if state is None and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u)):
+        y, wkv = WKV6Scan.apply(r, k, v, w, u)
+    elif state is None:
         y, wkv = scan_ops.rwkv6_scan(r, k, v, w, u)
     else:
         y, wkv = wkv6_scan_ref(r, k, v, w, u, state["wkv"])

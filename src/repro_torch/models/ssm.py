@@ -8,11 +8,15 @@ with a_h = -exp(A_log_h) < 0 and dt = softplus(x W_dt + bias).
 
 A prefill (no state given, any length, one token included) goes through
 the SSD kernel wrapper (``kernels/ssd_scan``): the hand-written CUDA kernel
-on the card, its plain version on the CPU.  A decode step (a state given)
-runs the recurrence step in plain torch (the JAX decode runs no kernel
-either: its chunked form at chunk 1).  Unlike the JAX package's ``ssd_chunked``, whose unclamped
-exponents overflow to NaN once a chunk is long enough, both versions stay
-finite at any length.
+on the card, its plain version on the CPU.  Under a gradient it goes
+through :class:`SSDScan`, whose forward is that same wrapper call and whose
+backward differentiates the plain chunked form (the JAX package trains
+through its chunked form too: the Pallas kernel has no backward).  A decode
+step (a state given) runs the recurrence step in plain torch (the JAX
+decode runs no kernel either: its chunked form at chunk 1).  Unlike the
+JAX package's ``ssd_chunked``, whose unclamped exponents overflow to NaN
+once a chunk is long enough, every version here stays finite at any
+length.
 """
 
 from __future__ import annotations
@@ -24,10 +28,10 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan import ops as scan_ops
-from ..kernels.ssd_scan.ref import ssd_scan_ref
-from .layers import dense_init, rms_norm
+from ..kernels.ssd_scan.ref import ssd_chunked_ref, ssd_scan_ref
+from .layers import dense_init, rms_norm, scan_vjp
 
-__all__ = ["ssm_params", "ssm_apply", "ssm_state_specs"]
+__all__ = ["ssm_params", "ssm_apply", "ssm_state_specs", "SSDScan"]
 
 _CONV_K = 4
 
@@ -42,15 +46,15 @@ def ssm_params(cfg) -> Dict:
     d = cfg.d_model
     inner, n, heads = _dims(cfg)
     return {
-        "w_in": dense_init(d, 2 * inner + 2 * n),
-        "conv": dense_init(_CONV_K, inner + 2 * n,
+        "w_in": dense_init((d, "embed"), (2 * inner + 2 * n, "heads")),
+        "conv": dense_init((_CONV_K, None), (inner + 2 * n, "heads"),
                            scale=1.0 / math.sqrt(_CONV_K)),
-        "w_dt": dense_init(d, heads),
-        "dt_bias": dense_init(heads, init="zeros"),
-        "a_log": dense_init(heads, init="zeros"),
-        "d_skip": dense_init(heads, init="ones"),
-        "norm": dense_init(inner, init="zeros"),
-        "w_out": dense_init(inner, d),
+        "w_dt": dense_init((d, "embed"), (heads, None)),
+        "dt_bias": dense_init((heads, None), init="zeros"),
+        "a_log": dense_init((heads, None), init="zeros"),
+        "d_skip": dense_init((heads, None), init="ones"),
+        "norm": dense_init((inner, None), init="zeros"),
+        "w_out": dense_init((inner, "heads"), (d, "embed")),
     }
 
 
@@ -70,6 +74,26 @@ def _causal_conv(xbc: torch.Tensor, kernel: torch.Tensor,
     return F.silu(out), padded[:, -(_CONV_K - 1):]
 
 
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with a gradient: the forward is one
+    ``scan_ops.ssd_scan`` call (the kernel on the card) and saves its
+    inputs; the backward recomputes the plain chunked form
+    (``ref.ssd_chunked_ref``) under autograd and differentiates it, inside
+    a profiler range named ``ssd_scan_bwd``.  Returns (y, final state);
+    either output may go unused (its gradient arrives as None)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bmat, cmat):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, bmat, cmat)
+        return scan_ops.ssd_scan(x, dt, a, bmat, cmat)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        with torch.profiler.record_function("ssd_scan_bwd"):
+            return scan_vjp(ssd_chunked_ref, ctx, (dy, dstate))
+
+
 def ssm_apply(cfg, p: Dict, u: torch.Tensor, state: Optional[Dict] = None
               ) -> Tuple[torch.Tensor, Dict]:
     """u [B,S,D] -> (y [B,S,D], state {"conv", "ssd"})."""
@@ -84,7 +108,10 @@ def ssm_apply(cfg, p: Dict, u: torch.Tensor, state: Optional[Dict] = None
     xh = x_part.reshape(bsz, s, heads, cfg.d_head)
     dt = F.softplus(u @ p["w_dt"] + p["dt_bias"])          # [B,S,H]
     a = -torch.exp(p["a_log"].float())
-    if state is None:
+    if state is None and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xh, dt, a, b_in, c_in)):
+        y, hfinal = SSDScan.apply(xh, dt, a, b_in, c_in)
+    elif state is None:
         y, hfinal = scan_ops.ssd_scan(xh, dt, a, b_in, c_in)
     else:
         y, hfinal = ssd_scan_ref(xh, dt, a, b_in, c_in, state["ssd"])

@@ -19,6 +19,11 @@ frontend.
   encoder;
 - ``decode_step(params, cache, tokens)``: one token for every batch row;
 - ``cache_specs(batch, max_len)``: shapes and dtypes of the decode cache;
+- ``abstract_params()``, ``param_logical_axes()`` and
+  ``input_specs(shape)``: the parameters and a cell's inputs as ``meta``
+  tensors, and each parameter's logical axes (the dry-run's and the
+  sharding rules' view; ``device="meta"`` builds a model that runs on
+  them);
 - ``train_loss(params, batch)``: next-token cross-entropy of a batch dict
   (``tokens`` [B,S], and ``patch_embeds`` or ``src_embeds`` where the
   family takes them), differentiable by ``torch.autograd``; with
@@ -39,8 +44,9 @@ Attention, the WKV6 recurrence and the SSD scan go through the kernel
 wrappers (``models.attention``, ``models.rwkv6``, ``models.ssm``):
 hand-written CUDA kernels on the card, their plain versions on the CPU.
 Under a gradient attention goes through the flash VJP
-(``attention.FlashAttention``); the scan kernels have no backward and
-refuse a gradient on the card, so RWKV-6 and Hymba train on the CPU only.
+(``attention.FlashAttention``) and the scans through ``rwkv6.WKV6Scan``
+and ``ssm.SSDScan``: the kernels forward, the plain chunked forms'
+gradients backward, so every family trains on the card.
 The embedding's gradient is a stable-sort segment sum
 (``relational.ops.segment_sum``), not the atomic ``index_put_`` of
 indexing's backward, so a train step on the card is bitwise repeatable.
@@ -61,15 +67,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..relational.ops import segment_sum
 from ..relational.table import resolve_device
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import rwkv6 as rwkv_mod
 from . import ssm as ssm_mod
-from .layers import dense_init, init_params, mlp_apply, mlp_params, rms_norm, \
-    softcap
+from .layers import abstract_params, dense_init, init_params, mlp_apply, \
+    mlp_params, param_axes, rms_norm, softcap
 
 __all__ = ["LanguageModel", "build_model", "quantize_kv"]
 
@@ -148,8 +154,8 @@ class LanguageModel:
     def _layer_template(self) -> Dict:
         cfg = self.cfg
         d = cfg.d_model
-        layer = {"ln1": dense_init(d, init="zeros"),
-                 "ln2": dense_init(d, init="zeros")}
+        layer = {"ln1": dense_init((d, None), init="zeros"),
+                 "ln2": dense_init((d, None), init="zeros")}
         if cfg.rwkv:
             layer.update({f"tm_{k}": v for k, v in
                           rwkv_mod.rwkv_params(cfg).items()})
@@ -157,10 +163,10 @@ class LanguageModel:
         layer["attn"] = attn_mod.attention_params(cfg)
         if cfg.hybrid:
             layer["ssm"] = ssm_mod.ssm_params(cfg)
-            layer["fuse_na"] = dense_init(d, init="zeros")
-            layer["fuse_ns"] = dense_init(d, init="zeros")
-            layer["beta_a"] = dense_init(d, init="ones")
-            layer["beta_s"] = dense_init(d, init="ones")
+            layer["fuse_na"] = dense_init((d, None), init="zeros")
+            layer["fuse_ns"] = dense_init((d, None), init="zeros")
+            layer["beta_a"] = dense_init((d, None), init="ones")
+            layer["beta_s"] = dense_init((d, None), init="ones")
         if cfg.n_experts > 0:
             layer["moe"] = moe_mod.moe_params(cfg)
         else:
@@ -170,29 +176,29 @@ class LanguageModel:
     def _encoder_layer_template(self) -> Dict:
         cfg = self.cfg
         d = cfg.d_model
-        return {"ln1": dense_init(d, init="zeros"),
-                "ln2": dense_init(d, init="zeros"),
+        return {"ln1": dense_init((d, None), init="zeros"),
+                "ln2": dense_init((d, None), init="zeros"),
                 "attn": attn_mod.attention_params(cfg),
                 "mlp": mlp_params(d, cfg.d_ff, cfg.act)}
 
     def _decoder_cross_template(self) -> Dict:
-        return {"ln_cross": dense_init(self.cfg.d_model, init="zeros"),
+        return {"ln_cross": dense_init((self.cfg.d_model, None), init="zeros"),
                 "cross": attn_mod.attention_params(self.cfg)}
 
     def param_template(self) -> Dict:
         cfg = self.cfg
         d, v = cfg.d_model, cfg.vocab_padded
         tpl: Dict[str, Any] = {
-            "embed": dense_init(v, d, scale=0.02),
-            "final_norm": dense_init(d, init="zeros"),
+            "embed": dense_init((v, "vocab"), (d, "embed"), scale=0.02),
+            "final_norm": dense_init((d, None), init="zeros"),
             "layers": [self._layer_template() for _ in range(cfg.n_layers)],
         }
         if not cfg.tie_embeddings:
-            tpl["lm_head"] = dense_init(d, v)
+            tpl["lm_head"] = dense_init((d, "embed"), (v, "vocab"))
         if cfg.is_encdec:
             tpl["enc_layers"] = [self._encoder_layer_template()
                                  for _ in range(cfg.n_encoder_layers)]
-            tpl["enc_norm"] = dense_init(d, init="zeros")
+            tpl["enc_norm"] = dense_init((d, None), init="zeros")
             tpl["cross_layers"] = [self._decoder_cross_template()
                                    for _ in range(cfg.n_layers)]
         return tpl
@@ -202,6 +208,17 @@ class LanguageModel:
         ``generator`` and placed on the model's device."""
         return init_params(self.param_template(), generator,
                            self.param_dtype, self.device)
+
+    def abstract_params(self) -> Dict:
+        """The parameters as ``meta`` tensors in ``param_dtype``: shapes and
+        dtypes at full size, no storage (the dry-run's)."""
+        return abstract_params(self.param_template(), self.param_dtype)
+
+    def param_logical_axes(self) -> Dict:
+        """Each parameter's logical axes, in the parameters' structure (a
+        per-layer leaf has the JAX package's stacked leaf's axes without
+        the leading ``layers``)."""
+        return param_axes(self.param_template())
 
     # --------------------------------------------------------------- embedding
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -561,6 +578,43 @@ class LanguageModel:
             h = self._cross_block(cp, h, enc_out, decode=True)
         y = self._mlp_or_moe(lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
         return h + rs * y
+
+
+    # ------------------------------------------------------------ input specs
+    def input_specs(self, shape: ShapeConfig) -> Dict:
+        """``meta`` tensors standing in for every input of a cell, with the
+        JAX package's shapes and dtypes: a train or prefill batch
+        (``tokens``, and ``patch_embeds`` or ``src_embeds`` where the family
+        takes them), or a decode step's ``tokens`` [B,1] and ``cache`` at
+        context length ``shape.seq_len``."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def meta(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            if cfg.frontend == "vision_patches":
+                npatch = cfg.n_frontend_tokens
+                return {"tokens": meta((b, s - npatch), torch.int32),
+                        "patch_embeds": meta((b, npatch, cfg.d_model),
+                                             torch.bfloat16)}
+            batch = {"tokens": meta((b, s), torch.int32)}
+            if cfg.is_encdec:
+                src = max(1, int(s * cfg.encoder_len_ratio))
+                batch["src_embeds"] = meta((b, src, cfg.d_model),
+                                           torch.bfloat16)
+            return batch
+
+        def metas(spec):
+            if isinstance(spec, dict):
+                return {k: metas(v) for k, v in spec.items()}
+            if isinstance(spec, list):
+                return [metas(v) for v in spec]
+            return meta(*spec)
+
+        return {"tokens": meta((b, 1), torch.int32),
+                "cache": metas(self.cache_specs(b, s))}
 
 
 def build_model(cfg: ModelConfig, device: Any = None,

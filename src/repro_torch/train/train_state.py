@@ -16,9 +16,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from .optimizer import AdamWConfig, adamw_init, adamw_update, global_norm
-from .tree import leaves, unflatten
+from .tree import leaves, tree_map, unflatten
 
-__all__ = ["init_train_state", "make_train_step", "loss_and_grads"]
+__all__ = ["init_train_state", "abstract_train_state", "make_train_step",
+           "loss_and_grads"]
 
 
 def init_train_state(model, generator: torch.Generator) -> Dict[str, Any]:
@@ -26,6 +27,20 @@ def init_train_state(model, generator: torch.Generator) -> Dict[str, Any]:
     fresh AdamW state."""
     params = model.init_params(generator)
     return {"params": params, "opt": adamw_init(params)}
+
+
+def abstract_train_state(model) -> Dict[str, Any]:
+    """The train state as ``meta`` tensors (no storage): the parameters of
+    ``model.abstract_params()``, float32 moments like each of them and an
+    int32 step."""
+    params = model.abstract_params()
+
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return {"params": params,
+            "opt": {"m": tree_map(f32, params), "v": tree_map(f32, params),
+                    "step": torch.empty((), dtype=torch.int32,
+                                        device="meta")}}
 
 
 def loss_and_grads(model, params, batch: Dict[str, Any]

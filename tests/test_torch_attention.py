@@ -254,8 +254,8 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(case):
         k = k.to(torch.bfloat16)
     elif case == "groups":
         k, v = torch.zeros(1, 8, 3, 64), torch.zeros(1, 8, 3, 64)
-    elif case == "device":
-        q, k, v = (x.to("meta") for x in (q, k, v))
+    elif case == "device":      # q on another device than k and v
+        q = q.to("meta")
     elif case == "contiguous":
         q = torch.zeros(1, 4, 8, 64).transpose(1, 2)
     elif case == "window":
@@ -280,8 +280,8 @@ def test_decode_wrapper_rejects_what_the_kernel_does_not_take(case):
         lens = torch.ones(3, dtype=torch.int32)
     elif case == "query_len":
         q = torch.zeros(2, 2, 4, 64)
-    else:
-        q, kc, lens = q.to("meta"), kc.to("meta"), lens.to("meta")
+    else:                       # q on another device than the caches
+        q = q.to("meta")
     with pytest.raises(ValueError):
         decode_ops.decode_attention(q, kc, kc, lens)
 

@@ -39,8 +39,39 @@ def test_scan_covers_the_package():
     assert ROOT / "src" / "repro_torch" / "core" / "clustering.py" in _FILES
     for name in ("models/moe.py", "serve/kv_cache.py", "serve/speculative.py",
                  "train/loop.py", "train/checkpoint.py",
-                 "distributed/fault_tolerance.py", "launch/train.py"):
+                 "distributed/fault_tolerance.py", "launch/train.py",
+                 "distributed/sharding.py", "distributed/elastic.py",
+                 "launch/mesh.py", "launch/serve.py", "launch/dryrun.py",
+                 "launch/cost_analysis.py", "launch/raven_dryrun.py",
+                 "kernels/cost.py"):
         assert ROOT / "src" / "repro_torch" / name in _FILES
+
+
+_BLOCK_JAX = """
+import sys
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, _Refuse())
+"""
+
+
+def test_launch_and_distributed_import_without_jax():
+    """The dry-run, the serve launcher and elastic rescaling import with
+    ``jax``, ``jaxlib`` and ``repro`` made unimportable."""
+    import subprocess
+    import sys
+    code = _BLOCK_JAX + (
+        "import repro_torch.launch.dryrun, repro_torch.launch.serve, "
+        "repro_torch.distributed.elastic, repro_torch.launch.raven_dryrun\n"
+        "assert not any(m.split('.')[0] in ('jax', 'repro') "
+        "for m in sys.modules)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120,
+                          env={"PYTHONPATH": str(ROOT / "src"),
+                               "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 @pytest.mark.parametrize("path", _FILES,

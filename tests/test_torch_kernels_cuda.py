@@ -1,10 +1,12 @@
-"""The port's hand-written CUDA kernels (tree GEMM, flash attention with
-its log-sum-exp, decode attention, the WKV6 and SSD scans) against their
-plain torch versions, on the card, and the training path over them (the
-flash VJP, remat's launches, a repeatable step, the scans refusing a
-gradient).  A CUDA kernel has no CPU mode, so every test here carries the
-``cuda`` marker and skips (inside a fixture) where no card is present.  The
-file imports no JAX, so it runs on a machine that has only the port:
+"""The port's hand-written CUDA kernels (tree GEMM, flash attention with its
+log-sum-exp, decode attention, the WKV6 and SSD scans) against their plain
+torch versions, on the card, and the training path over them (the flash
+VJP, remat's launches, a repeatable step, the scan wrappers refusing a
+gradient when called directly, the scans' autograd Functions, RWKV-6 and
+Hymba train steps) and the wrappers' abstract ``meta`` route. A CUDA kernel
+has no CPU mode, so every test here carries the ``cuda`` marker and skips
+(inside a fixture) where no card is present. The file imports no JAX, so it
+runs on a machine that has only the port:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -934,3 +936,139 @@ def test_kernel_wrappers_refuse_a_gradient_on_the_card(cuda_device):
         ssd_ops.ssd_scan(x, dt, a, bm, cm)
         flash_ops.flash_attention(x, x, x)
     torch.cuda.synchronize()
+
+
+def _grads(fn, inputs, cots):
+    xs = [x.clone().requires_grad_() for x in inputs]
+    y, st = fn(*xs)
+    ((y * cots[0]).sum() + (st * cots[1]).sum()).backward()
+    return [x.grad for x in xs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h", [(2, 37, 2), (1, 256, 4), (3, 1, 2)])
+def test_wkv6_function_on_the_card_matches_plain_autograd(b, s, h,
+                                                          cuda_device):
+    """``WKV6Scan`` on the card (forward the kernel, once; backward the
+    chunked form) against autograd through the float32 recurrence, within
+    1e-4 relative L2 (both in float32 on the card: reductions in other
+    orders)."""
+    from repro_torch.models.rwkv6 import WKV6Scan
+    gen = torch.Generator().manual_seed(s)
+    r, k, v = (0.5 * _randn(gen, (b, s, h, 64), torch.float32, cuda_device)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(_randn(gen, (b, s, h, 64), torch.float32,
+                                    cuda_device) * 0.5 - 1.0))
+    u = 0.3 * _randn(gen, (h, 64), torch.float32, cuda_device)
+    cots = (_randn(gen, (b, s, h, 64), torch.float32, cuda_device),
+            _randn(gen, (b, h, 64, 64), torch.float32, cuda_device))
+    before = wkv_ops.launches
+    got = _grads(WKV6Scan.apply, (r, k, v, w, u), cots)
+    assert wkv_ops.launches == before + 1
+    want = _grads(wkv6_scan_ref, (r, k, v, w, u), cots)
+    for g, ww in zip(got, want):      # one step: some gradients are 0
+        assert float((g - ww).norm() / ww.norm().clamp_min(1e-30)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n", [(2, 37, 2, 64, 16),
+                                       (1, 300, 3, 64, 16),
+                                       (2, 1, 2, 32, 8)])
+def test_ssd_function_on_the_card_matches_plain_autograd(b, s, h, p, n,
+                                                         cuda_device):
+    from repro_torch.models.ssm import SSDScan
+    gen = torch.Generator().manual_seed(s)
+    x = _randn(gen, (b, s, h, p), torch.float32, cuda_device)
+    dt = torch.nn.functional.softplus(
+        _randn(gen, (b, s, h), torch.float32, cuda_device) * 0.5 - 1.0)
+    a = -torch.exp(0.5 * _randn(gen, (h,), torch.float32, cuda_device))
+    bm, cm = (_randn(gen, (b, s, n), torch.float32, cuda_device)
+              for _ in range(2))
+    cots = (_randn(gen, (b, s, h, p), torch.float32, cuda_device),
+            _randn(gen, (b, h, p, n), torch.float32, cuda_device))
+    before = ssd_ops.launches
+    got = _grads(SSDScan.apply, (x, dt, a, bm, cm), cots)
+    assert ssd_ops.launches == before + 1
+    want = _grads(ssd_scan_ref, (x, dt, a, bm, cm), cots)
+    for g, ww in zip(got, want):      # one step: some gradients are 0
+        assert float((g - ww).norm() / ww.norm().clamp_min(1e-30)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_scan_families_train_on_the_card_with_exact_launches(arch,
+                                                              cuda_device):
+    """A remat train step of RWKV-6 / Hymba (reduced, d_head 64) on the
+    card: each layer's scan (and Hymba's flash) launches twice, the loss
+    is finite and the gradients match the CPU's per leaf within 8%
+    relative L2 (Hymba's ``dt_bias`` and ``d_skip``: 25%)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.train.train_state import loss_and_grads
+    from repro_torch.train.tree import leaves
+    over = dict(d_model=128, n_heads=2, n_kv_heads=2, d_head=64) \
+        if arch.startswith("rwkv6") else dict(d_head=64)
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), **over)
+    card = build_model(cfg, device=cuda_device, remat=True)
+    params = card.init_params(torch.Generator(device=cuda_device)
+                              .manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32))
+    counts = (wkv_ops.launches, ssd_ops.launches, flash_ops.launches)
+    loss, grads = loss_and_grads(card, params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    got = (wkv_ops.launches - counts[0], ssd_ops.launches - counts[1],
+           flash_ops.launches - counts[2])
+    two = 2 * cfg.n_layers
+    assert got == ((two, 0, 0) if cfg.rwkv else (0, two, two))
+    assert bool(torch.isfinite(loss))
+    cpu = build_model(cfg, device="cpu", remat=True)
+    cpu_params = [p.cpu() for p in leaves(params)]
+    from repro_torch.train.tree import unflatten
+    loss_h, grads_h = loss_and_grads(cpu, unflatten(params, cpu_params),
+                                     {"tokens": tokens})
+    assert abs(float(loss) - float(loss_h)) <= 1e-3 * abs(float(loss_h))
+    from repro_torch.train.tree import leaves_with_paths
+    for (key, gc), (_, gh) in zip(leaves_with_paths(grads),
+                                  leaves_with_paths(grads_h)):
+        # tests/test_torch_train_loss.py's tolerances
+        tol = 0.25 if key.endswith(("['dt_bias']", "['d_skip']")) else 0.08
+        rel = float((gc.cpu() - gh).norm() / gh.norm().clamp_min(1e-30))
+        assert rel <= tol, (key, rel)
+
+
+@pytest.mark.cuda
+def test_meta_routes_report_and_do_not_launch(cuda_device):
+    """The five wrappers on ``meta`` tensors: empty outputs of the right
+    shapes, the analytic work reported to the cost counter, no launch."""
+    from repro_torch.launch.cost_analysis import CostCounter
+    m = torch.device("meta")
+    before = (wkv_ops.launches, ssd_ops.launches, flash_ops.launches,
+              decode_ops.launches)
+    with CostCounter() as counter:
+        q = torch.empty((2, 64, 4, 64), dtype=torch.bfloat16, device=m)
+        kv = torch.empty((2, 64, 2, 64), dtype=torch.bfloat16, device=m)
+        assert flash_ops.flash_attention(q, kv, kv).shape == q.shape
+        out, lse = flash_ops.flash_attention_with_lse(q, kv, kv)
+        assert lse.shape == (2, 4, 64) and lse.dtype == torch.float32
+        q1 = torch.empty((2, 1, 4, 64), dtype=torch.bfloat16, device=m)
+        lens = torch.empty((2,), dtype=torch.int32, device=m)
+        assert decode_ops.decode_attention(q1, kv, kv, lens).shape == \
+            q1.shape
+        r = torch.empty((1, 32, 2, 64), device=m)
+        y, st = wkv_ops.rwkv6_scan(r, r, r, r, torch.empty((2, 64),
+                                                           device=m))
+        assert st.shape == (1, 2, 64, 64)
+        x = torch.empty((1, 32, 2, 64), device=m)
+        y, st = ssd_ops.ssd_scan(x, torch.empty((1, 32, 2), device=m),
+                                 torch.empty((2,), device=m),
+                                 torch.empty((1, 32, 16), device=m),
+                                 torch.empty((1, 32, 16), device=m))
+        assert st.shape == (1, 2, 64, 16)
+    kernels = counter.cost.kernels
+    assert kernels["flash_attention"]["calls"] == 2
+    assert {"decode_attention", "rwkv6_scan", "ssd_scan"} <= set(kernels)
+    assert (wkv_ops.launches, ssd_ops.launches, flash_ops.launches,
+            decode_ops.launches) == before
