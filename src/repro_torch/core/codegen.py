@@ -24,6 +24,7 @@ device (or at the first call on another device) — never per query.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -347,6 +348,40 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _mark(stream: torch.cuda.Stream,
+          pool: List[torch.cuda.Event]) -> torch.cuda.Event:
+    """A timing event from ``pool`` (or a new one), recorded on ``stream``."""
+    try:
+        ev = pool.pop()
+    except IndexError:
+        ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
+def _device_reader(spans: List[Any], marks: List[torch.cuda.Event],
+                   pool: List[torch.cuda.Event]) -> Callable[[], bool]:
+    """The reader of one call's boundary events (``marks`` has one event
+    more than ``spans``): it sets each span's ``device_ms``, the stream
+    time between the node's boundary events, and gives the events back to
+    ``pool``.  It returns False, and sets nothing, while the device has
+    not passed the last event; it reads once, from whichever thread runs
+    it first."""
+    lock = threading.Lock()
+
+    def read() -> bool:
+        with lock:
+            if marks and not marks[-1].query():
+                return False
+            for span, start, end in zip(spans, marks, marks[1:]):
+                span.attrs["device_ms"] = start.elapsed_time(end)
+            pool.extend(marks)
+            marks.clear()
+            return True
+
+    return read
+
+
 def compile_plan(plan: Plan, catalog,
                  config: Optional[ExecutionConfig] = None,
                  capture: Optional[str] = None,
@@ -369,6 +404,16 @@ def compile_plan(plan: Plan, catalog,
     instrumented op-at-a-time profiler: after each node the device is
     synchronized and the hook observes the node's wall time.  This is the
     EXPLAIN ANALYZE seam.
+
+    ``fn(tables, trace=...)`` records one call into a request's trace
+    (``serve/telemetry.py``) without syncing: an ``op.<op>`` span per node
+    (attribute ``nid``) under whatever span the caller holds open, and on
+    a CUDA device an event at every node boundary.  Each span's
+    ``device_ms`` (the stream's time from the node's boundary event to the
+    next node's) is read by the closure's next call, once its own
+    launches are queued, so the reading overlaps the device's work and
+    the events return to the closure's pool; a reader deferred on the
+    trace reads them first if the trace is read sooner.
     """
     config = config or ExecutionConfig()
     compile_stats["plans_compiled"] += 1
@@ -395,11 +440,20 @@ def compile_plan(plan: Plan, catalog,
     home = getattr(catalog, "device", None)
     if home is not None:
         constants(torch.device(home))
+    unread: List[Callable[[], bool]] = []    # the last call's event reader
+    unread_lock = threading.Lock()
+    event_pools: Dict[torch.device, List[torch.cuda.Event]] = {}
 
-    def run(tables: Dict[str, Table]) -> Any:
+    def run(tables: Dict[str, Table], trace: Any = None) -> Any:
         device = _device_of(tables) or torch.device(home or "cpu")
         consts = constants(device)
         env: Dict[str, Any] = {}
+        spans = trace is not None and trace.enabled
+        op_spans: List[Any] = []
+        marks: Optional[List[torch.cuda.Event]] = None
+        if spans and device.type == "cuda":
+            marks, stream = [], torch.cuda.current_stream(device)
+            pool = event_pools.setdefault(device, [])
 
         def bound(expr):
             try:
@@ -414,6 +468,11 @@ def compile_plan(plan: Plan, catalog,
             op = n.op
             ins = [env[i] for i in n.inputs]
             a = n.attrs
+            if spans:
+                span = trace.span("op." + op, nid=nid)
+                op_spans.append(span.__enter__())
+                if marks is not None:
+                    marks.append(_mark(stream, pool))
             if node_hook is not None:
                 _sync(device)
                 t0 = time.perf_counter()
@@ -537,6 +596,17 @@ def compile_plan(plan: Plan, catalog,
             if node_hook is not None:
                 _sync(device)
                 node_hook(nid, n, env[nid], time.perf_counter() - t0)
+            if spans:
+                span.__exit__(None, None, None)
+        if marks:
+            marks.append(_mark(stream, pool))
+            read = _device_reader(op_spans, marks, pool)
+            trace.defer(read)
+            with unread_lock:
+                earlier = unread[:]
+                unread[:] = [read]
+            for r in earlier:
+                r()
         if capture is not None:
             return env[plan.output], env[capture]
         return env[plan.output]

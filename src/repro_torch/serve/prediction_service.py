@@ -420,6 +420,9 @@ class _Pending:
     # The request's Trace (NULL_TRACE when telemetry is off).  Carried here
     # rather than only on ctx because the single-tenant path runs ctx=None.
     trace: Any = NULL_TRACE
+    # ``threading.get_ident()`` of the submitting thread: the ``lane_wait``
+    # span tells whether the thread that served the group was its own.
+    thread: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1337,7 +1340,8 @@ class PredictionService:
         return out
 
     def _store_result(self, ref: SubplanRef, value: Any, cost_s: float,
-                      producer: Any, tenant: Optional[str] = None) -> None:
+                      producer: Any, tenant: Optional[str] = None
+                      ) -> Optional[int]:
         """``producer`` identifies who materialized the value (the exec-cache
         key of the capturing query, or a rematerialization marker): a
         capture-compiled entry on its warm hit path upgrades to splicing
@@ -1350,18 +1354,22 @@ class PredictionService:
         proxy stands (the early return below skips re-puts to avoid bytes
         churn on every warm capture run); once the entry cycles through
         eviction, the rematerialization that repopulates it times the
-        subtree alone and inserts the tight value."""
+        subtree alone and inserts the tight value.
+
+        Returns how many entries the put evicted, or None when nothing was
+        put."""
         if self._result_cache is None:
-            return
+            return None
         rkey = self._result_key(ref)
         if rkey in self._result_cache:
-            return                       # identical by construction
+            return None                  # identical by construction
         evicted = self._result_cache.put(
             rkey, value, cost_s=cost_s,
             tags=ref.tags + (("producer", producer),), tenant=tenant)
         with self._lock:
             self.stats.result_puts += 1
             self.stats.result_evictions += len(evicted)
+        return len(evicted)
 
     def _materialize(self, ref: SubplanRef) -> Any:
         """Execute the subtree plan standalone (result-cache miss after
@@ -1398,7 +1406,7 @@ class PredictionService:
             return fn
         seen: Set[Tuple] = set()
 
-        def traced(tables):
+        def traced(tables, trace=None):
             sig = _input_signature(tables)
             with self._lock:
                 fresh = sig not in seen
@@ -1407,7 +1415,7 @@ class PredictionService:
                     self.stats.jit_traces += 1
             if fresh:
                 count_jit_trace()
-            return fn(tables)
+            return fn(tables, trace=trace)
 
         return traced
 
@@ -1922,7 +1930,7 @@ class PredictionService:
                                         tenant=tenant, trace=trace)
         else:
             out = self._execute_whole(compiled, tabs, store_capture,
-                                      tenant=tenant)
+                                      tenant=tenant, trace=trace)
         # A served result is a *ready* result: the ticket resolves, and
         # the caller's clock stops, only after the device finished it.
         return _ready(out)
@@ -1930,20 +1938,41 @@ class PredictionService:
     def _execute_whole(self, compiled: CompiledPrediction,
                        tabs: Dict[str, Table],
                        store_capture: bool = True,
-                       tenant: Optional[str] = None) -> Any:
+                       tenant: Optional[str] = None,
+                       trace: Any = NULL_TRACE) -> Any:
         """One whole-input execution of the fused program (the base tier;
         also the fallback when a sharded execution loses its partitioning
         mid-flight)."""
+        resident = self._capture_resident(compiled, trace)
         t0 = time.perf_counter()
-        raw = _ready(compiled.fn(tabs))
+        raw = _ready(compiled.fn(tabs, trace=trace))
         if compiled.capture is None:
             return raw
         out, captured = raw
-        if store_capture:
-            self._store_result(compiled.capture, captured,
-                               time.perf_counter() - t0,
-                               producer=compiled.key, tenant=tenant)
+        self._store_capture(compiled, captured, time.perf_counter() - t0,
+                            store_capture, resident, tenant, trace)
         return out
+
+    def _capture_resident(self, compiled: CompiledPrediction,
+                          trace: Any) -> bool:
+        """Whether a capture-compiled plan's subtree value is in the result
+        cache before this execution (read only for the trace)."""
+        return (trace.enabled and compiled.capture is not None
+                and self._result_key(compiled.capture) in self._result_cache)
+
+    def _store_capture(self, compiled: CompiledPrediction, captured: Any,
+                       cost_s: float, store_capture: bool, resident: bool,
+                       tenant: Optional[str], trace: Any) -> None:
+        """Offer a capture-compiled execution's subtree value to the result
+        cache, and mark the execution with a ``result_capture`` event:
+        whether the value was ``resident`` before it ran, whether it was
+        ``put``, and how many entries the put ``evicted``."""
+        evicted = None
+        if store_capture:
+            evicted = self._store_result(compiled.capture, captured, cost_s,
+                                         producer=compiled.key, tenant=tenant)
+        trace.event("result_capture", resident=resident,
+                    put=evicted is not None, evicted=evicted or 0)
 
     # -- partition-parallel (sharded) tier ------------------------------------
     def _should_shard(self, compiled: CompiledPrediction,
@@ -2008,7 +2037,7 @@ class PredictionService:
             # partitioning vanished between _should_shard and here (the
             # table was re-registered unpartitioned): serve whole-table
             return self._execute_whole(compiled, tabs, store_capture,
-                                       tenant=tenant)
+                                       tenant=tenant, trace=trace)
         executor = self._shard_executor()
         scan = next(n for n in compiled.plan.nodes.values()
                     if n.op == "scan")
@@ -2076,7 +2105,8 @@ class PredictionService:
         for t in dist.part_tables:
             pt = getter(t) if getter is not None else None
             if pt is None:
-                return self._execute_whole(compiled, tabs, store_capture)
+                return self._execute_whole(compiled, tabs, store_capture,
+                                           trace=trace)
             if (t, pt.version) not in compiled.catalog_versions:
                 stale.add(t)
             pts[t] = pt
@@ -2095,7 +2125,7 @@ class PredictionService:
                         self.stats.delta_fallbacks += 1
                     trace.event("delta_fallback", slot=stage.slot)
                     return self._execute_whole(compiled, tabs,
-                                               store_capture)
+                                               store_capture, trace=trace)
                 preps[i] = prep
             slots: Dict[str, Any] = {}
             for i, stage in enumerate(dist.stages):
@@ -2123,7 +2153,7 @@ class PredictionService:
                         compiled, stage, pts, combine=combine, trace=trace)
                     if not ok:     # cost gate: shuffle loses to whole-table
                         return self._execute_whole(compiled, tabs,
-                                                   store_capture)
+                                                   store_capture, trace=trace)
                 else:
                     combined, n_units = self._run_partition_wise(
                         compiled, stage, pts, combine=combine,
@@ -2168,7 +2198,8 @@ class PredictionService:
             # void the co-partitioning proof like any re-registration
             with self._lock:
                 self.stats.delta_fallbacks += 1
-            return self._execute_whole(compiled, tabs, store_capture)
+            return self._execute_whole(compiled, tabs, store_capture,
+                                       trace=trace)
         # join-only: the local plan IS the whole plan; drop the capture
         # half when present (a shuffled/sharded capture is not the value
         # the result-cache key would claim)
@@ -2178,7 +2209,8 @@ class PredictionService:
             ok, out, _units = self._run_exchange(compiled, dist, pts,
                                                  unwrap=unwrap, trace=trace)
             if not ok:
-                return self._execute_whole(compiled, tabs, store_capture)
+                return self._execute_whole(compiled, tabs, store_capture,
+                                           trace=trace)
         else:
             out, _units = self._run_partition_wise(compiled, dist, pts,
                                                    unwrap=unwrap,
@@ -2459,8 +2491,9 @@ class PredictionService:
             # cosmetic) residual per append would put a specialization
             # back on the very path the delta tier keeps compile-free.
             if from_prefix and compiled.raw_fn is not None:
-                return compiled.raw_fn({**tabs, ref.slot: value})
-            return compiled.fn({**tabs, ref.slot: value})
+                return compiled.raw_fn({**tabs, ref.slot: value},
+                                       trace=trace)
+            return compiled.fn({**tabs, ref.slot: value}, trace=trace)
 
     def _serve_from_prefix(self, compiled: CompiledPrediction,
                            ref: SubplanRef, rkey: Tuple,
@@ -2573,10 +2606,11 @@ class PredictionService:
         n = table.capacity
         trace.event("chunked", rows=n, chunk_rows=self.chunk_rows)
         pieces, captured = [], []
+        resident = self._capture_resident(compiled, trace)
         t0 = time.perf_counter()
         for start in range(0, n, self.chunk_rows):
             chunk = _slice_table(table, start, self.chunk_rows)
-            raw = compiled.fn({**tabs, name: chunk})
+            raw = compiled.fn({**tabs, name: chunk}, trace=trace)
             if compiled.capture is not None:
                 pieces.append(raw[0])
                 captured.append(raw[1])
@@ -2584,13 +2618,13 @@ class PredictionService:
                 pieces.append(raw)
             with self._lock:
                 self.stats.chunks_executed += 1
-        if compiled.capture is not None and captured and store_capture:
+        if compiled.capture is not None and captured:
             # chunk_table plans are row-local end to end, so chunked capture
             # concatenates to exactly the whole-table subtree value
-            cap = _ready(_trim_rows(_concat_outputs(captured), n))
-            self._store_result(compiled.capture, cap,
-                               time.perf_counter() - t0,
-                               producer=compiled.key, tenant=tenant)
+            cap = _ready(_trim_rows(_concat_outputs(captured), n)) \
+                if store_capture else None
+            self._store_capture(compiled, cap, time.perf_counter() - t0,
+                                store_capture, resident, tenant, trace)
         return _trim_rows(_concat_outputs(pieces), n)
 
     def run(self, query: Union[str, Plan],
@@ -2731,7 +2765,8 @@ class PredictionService:
             # groups share one execution and must never be split
             self.batcher.offer(batch_key,
                                _Pending(plan, tables, ticket,
-                                        params=bound, ctx=ctx, trace=trace),
+                                        params=bound, ctx=ctx, trace=trace,
+                                        thread=threading.get_ident()),
                                chunk=bool(key[2]), ctx=ctx)
         except AdmissionQueueFull:
             with self._lock:
@@ -2806,6 +2841,14 @@ class PredictionService:
                     "repro_queue_wait_seconds", lat,
                     labels={"tenant": tenant} if tenant else None)
         with self._flush_lock:
+            if self.telemetry:
+                # released at ``now`` (where queue_wait ended), waited for
+                # the execution lane until here
+                got = self.clock.monotonic()
+                me = threading.get_ident()
+                for p in group.items:
+                    p.trace.add_span("lane_wait", now, got,
+                                     own_flush=p.thread == me)
             served = self._serve_group(group.key, group.items)
         if tenant is not None and served:
             with self._lock:
@@ -2983,7 +3026,8 @@ class PredictionService:
             self.stats.evictions += len(evicted)
 
     def _execute_direct(self, compiled: CompiledPrediction,
-                        tabs: Dict[str, Table]) -> Any:
+                        tabs: Dict[str, Table],
+                        trace: Any = NULL_TRACE) -> Any:
         """Execute a shape-bucket executable on already-padded inputs: no
         chunk split (the bucket *is* the static shape) and no capture store
         (a padded stack is not the catalog data the result-cache key would
@@ -2991,7 +3035,7 @@ class PredictionService:
         compiled.serves += 1
         with self._lock:
             self.stats.batch_executions += 1
-        raw = compiled.fn(tabs)
+        raw = compiled.fn(tabs, trace=trace)
         if compiled.capture is not None:
             raw = raw[0]
         return _ready(raw)
@@ -3035,7 +3079,7 @@ class PredictionService:
                 tabs["__params__"] = params
             t0 = time.perf_counter()
             with trace.span("execute", stacked=len(group), bucket=bucket):
-                out = self._execute_direct(bcompiled, tabs)
+                out = self._execute_direct(bcompiled, tabs, trace=trace)
             self._record_twin_cost(bcompiled, fresh, btags,
                                    time.perf_counter() - t0)
         # no trim first: the split only reads rows up to sum(sizes), so

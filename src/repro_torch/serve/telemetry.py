@@ -11,7 +11,12 @@ on the hot path:
   threads: submit thread -> admission loop -> per-group serve); shard
   and exchange *worker* threads, which genuinely overlap, record
   finished spans out-of-band with ``trace.add_span(...)`` carrying a
-  ``tid`` (device index).  ``NULL_TRACE`` is a shared no-op singleton:
+  ``tid`` (device index).  Work that may only run once the device has
+  finished what the request launched (reading the CUDA events an
+  executable recorded at its operator boundaries) is queued with
+  ``trace.defer(fn)`` and run, if nothing ran it before, when the trace
+  is read: tracing adds no sync to the request's path.  ``NULL_TRACE``
+  is a shared no-op singleton:
   with ``telemetry=False`` every span site touches one attribute and
   one pre-built context manager, nothing else.
 
@@ -107,6 +112,7 @@ class Trace:
         self.attrs: Dict[str, Any] = attrs or {}
         self.roots: List[Span] = []
         self._stack: List[Span] = []
+        self._deferred: List[Callable[[], bool]] = []
         self._lock = threading.Lock()
         self.started: float = clock.monotonic()
         self.finished: Optional[float] = None
@@ -146,6 +152,24 @@ class Trace:
         now = self.clock.monotonic()
         return self.add_span(name, now, now, **attrs)
 
+    def defer(self, fn: Callable[[], bool]) -> None:
+        """Queue ``fn`` until the trace is read: work that needs the
+        device to have finished what the request launched, such as
+        reading CUDA events.  ``fn`` returns False while it cannot run
+        yet, and is kept for the next read."""
+        with self._lock:
+            self._deferred.append(fn)
+
+    def settle(self) -> None:
+        """Run the deferred work that can run now; every read of the
+        spans does this first."""
+        with self._lock:
+            fns, self._deferred = self._deferred, []
+        left = [fn for fn in fns if not fn()]
+        if left:
+            with self._lock:
+                self._deferred[:0] = left
+
     def finish(self) -> None:
         if self.finished is None:
             self.finished = self.clock.monotonic()
@@ -159,6 +183,7 @@ class Trace:
         return end - self.started
 
     def spans(self) -> Iterator[Span]:
+        self.settle()
         for r in self.roots:
             yield from r.walk()
 
@@ -172,6 +197,7 @@ class Trace:
         return [s.name for s in self.spans()]
 
     def pretty(self) -> str:
+        self.settle()
         lines = [f"trace #{self.trace_id} {self.name} "
                  f"({self.total_s * 1e3:.3f}ms) {self.attrs or ''}".rstrip()]
 
@@ -235,6 +261,12 @@ class _NullTrace:
         return None
 
     def event(self, name: str, **attrs) -> None:
+        return None
+
+    def defer(self, fn: Callable[[], bool]) -> None:
+        return None
+
+    def settle(self) -> None:
         return None
 
     def finish(self) -> None:

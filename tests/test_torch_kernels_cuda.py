@@ -701,6 +701,37 @@ def _flight_pipeline(l1, steps):
 
 
 @pytest.mark.cuda
+def test_operator_spans_account_for_an_execution_on_the_card(cuda_device):
+    """A served query's ``op.<op>`` spans carry ``device_ms``, the stream
+    time from each node's boundary event to the next one's, read when the
+    trace is read: over one warm execution at 2M flights they sum to
+    80-100% of its ``execute`` span (the rest is host time before the
+    first event and after the last)."""
+    from repro_torch.core import ModelStore
+    from repro_torch.data import flight_features
+    from repro_torch.relational.table import Table
+    from repro_torch.serve import PredictionService
+    fcols, fy = flight_features(2_000_000, seed=3)
+    pipe = _flight_pipeline(0.01, 100).fit(
+        {k: v[:20_000] for k, v in fcols.items()}, fy[:20_000])
+    store = ModelStore()
+    store.register_table("flights", Table.from_pydict(fcols))
+    store.register_model("delay", pipe)
+    svc = PredictionService(store)
+    sql = ("SELECT origin, dest, PREDICT_PROBA(MODEL='delay') AS p "
+           "FROM flights WHERE taxi_out >= 15")
+    for _ in range(3):
+        svc.run(sql)
+    tr = svc.traces()[-1]
+    ex = tr.find("execute")
+    ops = [s for s in ex.children if s.name.startswith("op.")]
+    assert ops and all(s.attrs["device_ms"] >= 0 for s in ops)
+    share = sum(s.attrs["device_ms"] for s in ops) / (ex.duration * 1e3)
+    assert 0.8 <= share <= 1.0, (share, tr.pretty())
+    svc.close()
+
+
+@pytest.mark.cuda
 def test_logistic_fit_on_the_card_is_deterministic_and_matches_cpu(
         cuda_device):
     from repro_torch.data import flight_features

@@ -18,7 +18,10 @@ Four layers of guarantees:
    coalesced groups and result-cache splice each leave their signature
    spans in the request's trace — the observability contract the
    EXPLAIN/trace tooling reads — sharded morsel waves and shuffle-exchange
-   buckets included.
+   buckets included.  The port's own spans: ``lane_wait`` (a released
+   group's wait for the execution lane), one ``op.<op>`` span per plan
+   node under ``execute``, and the ``result_capture`` event on every
+   execution of a capture-compiled plan.
 4. **Off is free**: ``telemetry=False`` yields the shared NULL_TRACE
    (zero spans retained, ``ticket.trace()`` is None) and zero hot-path
    registry writes, while pull-time collectors keep working.
@@ -30,6 +33,8 @@ time.
 """
 
 import json
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -58,6 +63,14 @@ FEATS = ["age", "gender", "pregnant", "rcount"]
 SQL = "SELECT pid, age FROM patient_info WHERE age > 30"
 SQL_A = "SELECT pid, PREDICT(MODEL='m') AS score FROM patient_info"
 SQL_B = "SELECT pid, age, PREDICT(MODEL='m') AS score FROM patient_info"
+# Spans the port records and the JAX service does not.
+PORT_ONLY = ("lane_wait", "result_capture")
+
+
+def _shared(names):
+    """Span names less the port's own (``PORT_ONLY`` and ``op.*``)."""
+    return [n for n in names
+            if n not in PORT_ONLY and not n.startswith("op.")]
 
 
 def _jax_fit(store):
@@ -134,6 +147,55 @@ def test_worker_add_span_and_events():
     assert [w.tid for w in waves] == [1, 2]
     # workers parent under the phase span that was open when they recorded
     assert all(w in tr.find("execute").children for w in waves)
+
+
+def test_deferred_work_runs_when_the_trace_is_read():
+    clock = ManualClock()
+    tr = Trace(clock)
+    with tr.span("execute") as ex:
+        clock.advance(0.5)
+    ready = {"now": False}
+
+    def read_device():                  # e.g. CUDA events not yet passed
+        if not ready["now"]:
+            return False
+        ex.attrs["device_ms"] = 400.0
+        return True
+
+    tr.defer(read_device)
+    assert tr.find("execute").attrs == {}       # kept for the next read
+    ready["now"] = True
+    assert tr.find("execute").attrs == {"device_ms": 400.0}
+    assert "device_ms=400.0" in tr.pretty()
+    assert NULL_TRACE.defer(read_device) is None
+
+
+def test_device_reader_reads_once_after_the_last_event():
+    from repro_torch.core.codegen import _device_reader
+    from repro_torch.serve.telemetry import Span
+
+    class Event:                        # a CUDA event's reading surface
+        def __init__(self, ms, passed=True):
+            self.ms, self.passed = ms, passed
+
+        def query(self):
+            return self.passed
+
+        def elapsed_time(self, end):
+            return end.ms - self.ms
+
+    spans = [Span("op.featurize", 0.0), Span("op.matmul_bias", 0.0)]
+    marks = [Event(0.0), Event(2.5), Event(4.0, passed=False)]
+    events, pool = list(marks), []
+    read = _device_reader(spans, marks, pool)
+    assert read() is False
+    assert all("device_ms" not in s.attrs for s in spans)
+    marks[-1].passed = True
+    assert read() is True
+    assert [s.attrs["device_ms"] for s in spans] == [2.5, 1.5]
+    # the events go back to the pool, once
+    assert marks == [] and pool == events
+    assert read() is True and pool == events
 
 
 def test_chrome_trace_export_shape(tmp_path):
@@ -273,6 +335,84 @@ def test_splice_trace_visible_in_second_query(store):
     svc.close()
 
 
+def test_lane_wait_span_is_exact_while_the_lane_is_held(store):
+    clock = ManualClock()
+    svc = PredictionService(store, clock=clock, admission=AdmissionConfig(
+        latency_budget_s=1.0, background=False))
+    ticket = svc.submit(SQL)
+    flusher = threading.Thread(target=svc.flush, daemon=True)
+    with svc._flush_lock:
+        flusher.start()
+        # queue_wait is recorded at the group's release, before the lane
+        give_up = time.monotonic() + 30.0
+        while ticket.trace().find("queue_wait") is None:
+            assert time.monotonic() < give_up, "flush never released it"
+            time.sleep(0.001)
+        clock.advance(0.75)
+    flusher.join(timeout=30.0)
+    assert not flusher.is_alive()
+    ticket.result(timeout=0)
+    tr = ticket.trace()
+    lane = tr.find("lane_wait")
+    assert lane.duration == 0.75
+    assert lane.start == tr.find("queue_wait").end
+    # drained by another thread's flush, not by its submitter
+    assert lane.attrs == {"own_flush": False}
+    assert lane in tr.roots and lane.end <= tr.find("execute").start
+    svc.run(SQL)                       # submitted and flushed here
+    assert svc.traces()[-1].find("lane_wait").attrs["own_flush"] is True
+    svc.close()
+
+
+@pytest.mark.parametrize("path", ["whole", "chunked", "stacked"])
+def test_one_op_span_per_plan_node_under_execute(store, path):
+    svc = PredictionService(store, chunk_rows=128 if path == "chunked"
+                            else 0)
+    tables = None
+    if path == "stacked":
+        tables = {"patient_info": _sub(store.get_table("patient_info"),
+                                       0, 40)}
+    svc.run(SQL_A, tables)
+    (tr,) = svc.traces()
+    ex = tr.find("execute")
+    plan = svc.explain(SQL_A, tables).plan
+    order = [(f"op.{plan.nodes[nid].op}", nid) for nid in plan.topo_order()]
+    calls = 3 if path == "chunked" else 1       # 300 rows in 128-row chunks
+    ops = [(s.name, s.attrs["nid"]) for s in ex.children
+           if s.name.startswith("op.")]
+    assert ops == order * calls
+    assert len([s for s in tr.spans() if s.name.startswith("op.")]) \
+        == len(ops)
+    # on the CPU there is no stream to time
+    assert all("device_ms" not in s.attrs for s in tr.spans())
+    svc.close()
+
+
+def test_result_capture_marks_residency_puts_and_evictions(store):
+    svc = PredictionService(store)
+    svc.run(SQL_A)                     # captures its scored subtree
+    svc.run(SQL_A)                     # the same capture, now resident
+    svc.run(SQL_B)                     # spliced from the cache
+    first, second, spliced = svc.traces()
+    assert first.find("result_capture").attrs == {
+        "resident": False, "put": True, "evicted": 0}
+    assert first.find("result_capture") in first.find("execute").children
+    assert second.find("result_capture").attrs == {
+        "resident": True, "put": False, "evicted": 0}
+    assert spliced.find("result_cache_splice") is not None
+    assert spliced.find("result_capture") is None
+    svc.close()
+    # no room for a capture: each put evicts the value it put
+    svc = PredictionService(store, result_cache_bytes=1)
+    for _ in range(3):
+        svc.run(SQL_A)
+    assert [tr.find("result_capture").attrs for tr in svc.traces()] == [
+        {"resident": False, "put": True, "evicted": 1}] * 3
+    assert (svc.stats.result_puts, svc.stats.result_evictions,
+            svc.stats.spliced_executions) == (3, 3, 0)
+    svc.close()
+
+
 def _sharded_trace_run(pkg):
     """One sharded scan with zone-map pruning, served by ``pkg``'s
     service: its stats and its trace's ``shard_wave`` spans."""
@@ -301,7 +441,7 @@ def _sharded_trace_run(pkg):
              if s.name == "shard_wave"]
     stats = (svc.stats.sharded_executions, svc.stats.partitions_scanned,
              svc.stats.shard_waves)
-    names = tr.span_names()
+    names = _shared(tr.span_names())
     svc.close()
     return stats, waves, names
 
@@ -369,7 +509,7 @@ def _exchange_trace_run(pkg):
     spans = [(s.name, s.tid, dict(s.attrs)) for s in tr.spans()
              if s.name.startswith("exchange_")]
     out = (svc.stats.exchange_executions, svc.stats.exchange_bytes_moved,
-           tr.find("exchange_build").attrs, spans, tr.span_names())
+           tr.find("exchange_build").attrs, spans, _shared(tr.span_names()))
     svc.close()
     return out
 
@@ -416,16 +556,21 @@ def test_trace_ring_capacity_bounds_retention(store):
 def test_telemetry_off_zero_spans_zero_writes(store):
     svc = PredictionService(store, telemetry=False)
     ticket = svc.submit(SQL)
-    svc.flush()
+    flusher = threading.Thread(target=svc.flush, daemon=True)
+    flusher.start()
+    flusher.join(timeout=30.0)
+    assert not flusher.is_alive()
     ticket.result(timeout=5)
     svc.run(SQL)
+    svc.run(SQL_A)                                # a capture-compiled plan
+    svc.run(SQL_A)
     assert svc.traces() == []
     assert ticket.trace() is None
     assert svc.metrics.writes == 0                # no hot-path mutations
     # pull-time collectors still work: stats stay the source of truth
     snap = svc.metrics_snapshot()
-    assert snap["counters"]["repro_submitted_total"] == 2.0
-    assert snap["counters"]["repro_cache_hits_total"] == 1.0
+    assert snap["counters"]["repro_submitted_total"] == 4.0
+    assert snap["counters"]["repro_cache_hits_total"] == 2.0
     svc.close()
 
 
@@ -565,8 +710,18 @@ def test_traces_and_metrics_match_jax(store):
         jsvc, jclock, js.get_table("patient_info"))
     tspans, tbad, tsnap = _telemetry_script(
         tsvc, tclock, store.get_table("patient_info"))
-    assert tspans == jspans and tbad and jbad
+    # the port's own spans aside, the same spans per request
+    assert [_shared(names) for names in tspans] == jspans and tbad and jbad
     assert any("result_cache_splice" in names for names in tspans)
+    # and the port's own where the script makes them: a lane wait for
+    # every released request, operator spans in every execution, a
+    # capture event on the one whole-table capture (SQL_A's first run)
+    for names in tspans:
+        assert ("lane_wait" in names) == ("queue_wait" in names)
+        assert any(n.startswith("op.") for n in names) == \
+            ("execute" in names)
+    assert [i for i, names in enumerate(tspans)
+            if "result_capture" in names] == [2]
     assert tsnap["counters"] == jsnap["counters"]
     assert tsnap["counters"]["repro_jit_traces_total"] > 0
     # the executable tier's bytes weigh plan constants, which the port
