@@ -14,7 +14,10 @@ Phases (each prints JSON lines; any failure exits non-zero):
                registers, shared memory and spills for each kernel.
 3. kernels  — each kernel against its plain torch version on the card:
                tree_gemm bitwise at the query path's shapes and on edge
-               cases (ragged rows, NaN/±inf, one tree); flash_attention and
+               cases (ragged rows, NaN/±inf, one tree); featurized_linear
+               bitwise at edge sizes, on misaligned slices and at the
+               benchmark's 5,819,079 flights, where it also equals the
+               unfused featurize and row-wise fold; flash_attention and
                decode_attention within 2e-5 (float32) and 2e-2 (bfloat16)
                over GQA groups 1, 2, 4, 5 and (decode) 12, head dims 64,
                128 and 256, causal / window 64 / softcap 30 /
@@ -100,8 +103,8 @@ Phases (each prints JSON lines; any failure exits non-zero):
                bucket rows, exchange bytes, the exchange's planning ms and
                the span times.
 6c. fits   — the port fits its own models and clusters them, at the
-               paper's sizes (no kernel of its own: autograd, reductions
-               and GEMVs).  Fig 2a: ``flight_features(700_000)``, for each
+               paper's sizes (the fits use no kernel of their own:
+               autograd, reductions and GEMVs).  Fig 2a: ``flight_features(700_000)``, for each
                l1 in (0.002, 0.01, 0.05) benchmarks/common.py's
                ``flights_lr_pipeline`` (one-hot origin/dest/carrier/dow,
                the scaler, 300 ISTA steps) fitted on the card twice
@@ -109,7 +112,9 @@ Phases (each prints JSON lines; any failure exits non-zero):
                within 1e-5; zero sets equal, or every index zero in one
                fit only under 1e-5 in the other), then ``SELECT dep_hour,
                PREDICT_PROBA(MODEL='delay') AS p FROM flights`` with and
-               without projection pushdown, bitwise equal.  Fig 2b: the
+               without projection pushdown, bitwise equal, each execution
+               launching featurized_linear exactly once (the ``kernels``
+               line's ``launches_by_path``).  Fig 2b: the
                l1 = 0.003 pipeline fitted on the card, k-means clustered
                models (k = 2, 4, 8, 16) built on the card from the first
                20,000 rows over origin/dest/carrier, each routed over all
@@ -441,12 +446,15 @@ def phase_build():
 
     from repro_torch.kernels.decode_attention import \
         decode_attention as da_build
+    from repro_torch.kernels.featurized_linear import \
+        featurized_linear as fl_build
     from repro_torch.kernels.flash_attention import \
         flash_attention as fa_build
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wkv_build
     from repro_torch.kernels.ssd_scan import ssd_scan as ssd_build
     from repro_torch.kernels.tree_gemm import tree_gemm as tg_build
     builders = {"tree_gemm": tg_build.build,
+                "featurized_linear": fl_build.build,
                 "flash_attention": fa_build.build,
                 "decode_attention": da_build.build,
                 "rwkv6_scan": wkv_build.build, "ssd_scan": ssd_build.build}
@@ -459,6 +467,7 @@ def phase_build():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": libs})
     sources = {"tree_gemm": tg_build.SOURCE,
+               "featurized_linear": fl_build.SOURCE,
                "flash_attention": fa_build.SOURCE,
                "decode_attention": da_build.SOURCE,
                "rwkv6_scan": wkv_build.SOURCE, "ssd_scan": ssd_build.SOURCE}
@@ -591,6 +600,123 @@ def phase_kernels(ens, ens_pad8, x_main):
            "library_ms": None, "library_device_ms": None}
     emit({"phase": "kernels", "kernel": "tree_gemm", "timing": row,
           "x": list(x_main.shape)})
+    return row
+
+
+# -- phase 3, the featurized linear scorer ------------------------------------
+
+BENCH_FLIGHTS = 5_819_079        # the benchmark's flights table
+
+
+def flights_operands(n, code_dtype="int32", seed=0):
+    """The benchmark's flights model as the kernel sees it: 40 of 322
+    origins, 40 of 322 destinations and 2 of 14 carriers kept (scattered
+    codes), taxi_out and dep_hour scaled, 84 weights; ``n`` rows of raw
+    columns on the card, codes drawn past the kept ones."""
+    import numpy as np
+    import torch
+
+    from repro_torch.ml import OneHotEncoder, StandardScaler
+    rng = np.random.default_rng(seed)
+    enc = OneHotEncoder(["origin", "dest", "carrier"])
+    enc.categories = {c: np.sort(rng.choice(d, k, replace=False))
+                      .astype(np.int32)
+                      for c, d, k in (("origin", 322, 40), ("dest", 322, 40),
+                                      ("carrier", 14, 2))}
+    sc = StandardScaler(["taxi_out", "dep_hour"])
+    sc.mean, sc.std = np.float32([16.1, 13.2]), np.float32([8.9, 4.8])
+    w = rng.normal(1.0, 0.5, (84, 1)).astype(np.float32)
+    w[-2:] = rng.normal(0.0, 0.5, (2, 1))
+    cols = {"origin": rng.integers(-2, 330, n),
+            "dest": rng.integers(0, 322, n),
+            "carrier": rng.integers(0, 16, n),
+            "taxi_out": rng.gamma(4.0, 4.0, n).astype(np.float32),
+            "dep_hour": rng.integers(0, 24, n).astype(np.int32)}
+    for c in ("origin", "dest", "carrier"):
+        cols[c] = cols[c] % 2 == 0 if code_dtype == "bool" \
+            else cols[c].astype(np.int32)
+    return ([enc, sc], w, np.float32([-2.1]),
+            {k: torch.as_tensor(v).cuda() for k, v in cols.items()})
+
+
+def phase_featurized_linear():
+    """featurized_linear against its plain version (bitwise) at edge sizes,
+    on misaligned slices and at the benchmark's 5,819,079 flights, and
+    against the unfused plan (the featurizers' matrix and the row-wise
+    fold) there; then timed: the wrapper, the C entry point's device time,
+    the plain version and the unfused nodes, beside the bound by bytes.
+    The columns and the logits (139.7 MB) exceed the 50 MB L2, so each
+    launch reads from HBM."""
+    import torch
+
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.featurized_linear import ops as fl_ops
+    from repro_torch.kernels.featurized_linear.featurized_linear import \
+        featurized_linear_cuda
+    from repro_torch.kernels.featurized_linear.ref import \
+        featurized_linear_ref
+    from repro_torch.ml.linear import rowwise_matmul
+
+    def bitwise(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    dev = torch.device("cuda")
+    for n, dtype, offset in ((1, "int32", 0), (31, "int32", 1),
+                             (4097, "bool", 2), (4097, "int32", 3),
+                             (BENCH_FLIGHTS, "int32", 1)):
+        feats, w, b, cols = flights_operands(n + offset, dtype, seed=n)
+        cols = {k: v[offset:] for k, v in cols.items()}
+        op = fl_ops.prepare(feats, w, b, dev)
+        got = fl_ops.featurized_linear(op, cols)
+        want = featurized_linear_ref([cols[c] for c in op.columns],
+                                     op.blocks, op.table, op.bias)
+        ok = bitwise(got, want)
+        emit({"phase": "kernels", "kernel": "featurized_linear",
+              "case": f"n{n}_{dtype}_offset{offset}", "bitwise": ok})
+        if not ok:
+            fail(f"featurized_linear differs from its plain version at "
+                 f"n={n}, {dtype}, offset {offset}")
+
+    feats, w, b, cols = flights_operands(BENCH_FLIGHTS)
+    op = fl_ops.prepare(feats, w, b, dev)
+    wt, bt = torch.as_tensor(w, device=dev), torch.as_tensor(b, device=dev)
+
+    def unfused():
+        x = torch.cat([f.transform(cols) for f in feats], dim=1)
+        return rowwise_matmul(x, wt) + bt
+
+    got = fl_ops.featurized_linear(op, cols)
+    if not bitwise(got, unfused()):
+        fail("featurized_linear differs from the unfused plan at "
+             f"{BENCH_FLIGHTS} rows")
+    ordered = [cols[c] for c in op.columns]
+    blocks, aligned, _ = fl_ops.kernel_blocks(op, ordered)
+    out = torch.empty((BENCH_FLIGHTS, 1), dtype=torch.float32, device=dev)
+    launches0 = fl_ops.launches
+    ms = cuda_ms(lambda: fl_ops.featurized_linear(op, cols))
+    dev_ms = device_ms(lambda: featurized_linear_cuda(blocks, aligned,
+                                                      op.table, op.bias,
+                                                      out))
+    plain_ms = cuda_ms(lambda: featurized_linear_ref(ordered, op.blocks,
+                                                     op.table, op.bias))
+    plain_dev_ms = device_ms(lambda: featurized_linear_ref(
+        ordered, op.blocks, op.table, op.bias), runs=10)
+    unfused_ms = cuda_ms(unfused)
+    unfused_dev_ms = device_ms(unfused, runs=10)
+    work = cost.featurized_linear_cost(BENCH_FLIGHTS, 5 * 4, 3, 2)
+    bound_ms = work["bytes"] / cost.PEAK_BYTES_PER_S * 1e3
+    row = {"name": "featurized_linear", "route": "cuda",
+           "source": "src/repro_torch/csrc/featurized_linear.cu",
+           "replaces": None, "rows": BENCH_FLIGHTS, "bitwise": True,
+           "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "plain_device_ms": plain_dev_ms,
+           "unfused_ms": unfused_ms, "unfused_device_ms": unfused_dev_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "bound_bytes": work["bytes"],
+           "roofline_pct": 100.0 * bound_ms / dev_ms,
+           "wrapper_launches_timed": fl_ops.launches - launches0,
+           "library_ms": None, "library_device_ms": None}
+    emit({"phase": "kernels", "kernel": "featurized_linear", "timing": row})
     return row
 
 
@@ -1286,7 +1412,9 @@ def phase_fits(tables):
     sizes: Fig 2a (L1 logistic fits on 700K flights, served with and
     without projection pushdown), Fig 2b (k-means clustered models routed
     over all 700K rows) and Fig 3 (an MLP fitted on 100,000 patients and
-    served through ``PredictionService`` at 1,000,000)."""
+    served through ``PredictionService`` at 1,000,000).  -> the
+    featurized_linear launches of the Fig 2a queries, by plan: exactly one
+    an execution, with the timing loops left out."""
     import numpy as np
     import torch
 
@@ -1295,12 +1423,14 @@ def phase_fits(tables):
                                   parse_query)
     from repro_torch.core.clustering import build_clustered_model
     from repro_torch.data import flight_features
+    from repro_torch.kernels.featurized_linear import ops as fl_ops
     from repro_torch.ml import MLP, Pipeline, PipelineMetadata, StandardScaler
     from repro_torch.ml.convert import pipeline_from_state, pipeline_state
     from repro_torch.relational import Table
     from repro_torch.relational.table import to_numpy
     from repro_torch.serve import PredictionService
     t0 = time.perf_counter()
+    fl_launches = {"fig2a_base": 0, "fig2a_pushdown": 0}
     fcols, fy = flight_features(FLIGHT_ROWS)
     flights = Table.from_pydict({**fcols, "delayed": fy})
 
@@ -1331,7 +1461,15 @@ def phase_fits(tables):
         opt, rep = CrossOptimizer(store, OptimizerConfig()).optimize(plan)
         tabs = {"flights": store.get_table("flights")}
         f0, f1 = compile_plan(base, store), compile_plan(opt, store)
-        out0, out1 = host(f0(tabs)), host(f1(tabs))
+        outs = []
+        for path, fn in (("fig2a_base", f0), ("fig2a_pushdown", f1)):
+            fl_ops.launches = 0         # counts from here on are the path's
+            outs.append(host(fn(tabs)))
+            if fl_ops.launches != 1:
+                fail(f"fits: Fig 2a l1={l1}: {path} launched "
+                     f"featurized_linear {fl_ops.launches} times, not once")
+            fl_launches[path] += fl_ops.launches
+        out0, out1 = outs
         if not same(out0, out1):
             fail(f"fits: Fig 2a l1={l1}: pushdown changed the answer")
         if not np.isfinite(out0["p"]).all():
@@ -1467,6 +1605,7 @@ def phase_fits(tables):
     torch.cuda.empty_cache()
     emit({"phase": "fits", "step": "done",
           "seconds": time.perf_counter() - t0})
+    return fl_launches
 
 # -- phase 3, attention ------------------------------------------------------
 
@@ -3789,6 +3928,8 @@ def main() -> None:
             if name != "prenatal_tests" for c in t.names}
     x_main = pipe.transform(cols)          # query (a)'s features, on card
     row = timed("kernels", phase_kernels, ens, ens_pad8, x_main)
+    fl_row = timed("kernels_featurized_linear", phase_featurized_linear)
+    torch.cuda.empty_cache()
 
     flash_row, decode_row = timed("kernels_attention",
                                   phase_attention_kernels)
@@ -3802,7 +3943,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     sharded_launches = timed("sharded", phase_sharded, tables, pipe)
     torch.cuda.empty_cache()
-    timed("fits", phase_fits, tables)
+    fl_launches = timed("fits", phase_fits, tables)
     del tables
     torch.cuda.empty_cache()
 
@@ -3850,6 +3991,8 @@ def main() -> None:
          "launches_by_phase": {"main": launches,
                                "service": service_launches,
                                "sharded": sharded_launches}},
+        {**fl_row, "launches": sum(fl_launches.values()),
+         "launches_by_path": fl_launches},
         on_paths("flash_attention", flash_row),
         on_paths("decode_attention", decode_row),
         on_paths("rwkv6_scan", wkv_row),

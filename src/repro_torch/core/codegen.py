@@ -296,15 +296,76 @@ def _external_predict(model, task: str, proba: bool, latency_s: float):
     return call
 
 
-def _stage(nodes, order, config: "ExecutionConfig",
-           device: torch.device) -> Dict[str, Any]:
+def _column_dtypes(plan: Plan, nid: str, catalog) -> Dict[str, torch.dtype]:
+    """Column -> dtype of node ``nid``'s table, as far as the plan shows
+    it: a scan's from its catalog table's schema, carried through
+    ``filter``, ``project``, ``rename`` and ``map`` (less the column a map
+    computes); nothing past any other node, or for a table the catalog
+    does not hold."""
+    n = plan.nodes[nid]
+    if n.op == "scan":
+        try:
+            schema = catalog.get_table(n.attrs["table"]).schema
+        except (AttributeError, KeyError):
+            return {}
+        return {c.name: c.dtype for c in schema.columns}
+    if n.op not in ("filter", "project", "rename", "map"):
+        return {}
+    dtypes = _column_dtypes(plan, n.inputs[0], catalog)
+    if n.op == "rename":
+        mapping = n.attrs["mapping"]
+        dtypes = {mapping.get(k, k): v for k, v in dtypes.items()}
+    elif n.op == "map":
+        dtypes.pop(n.attrs["name"], None)
+    return dtypes
+
+
+def _fused_linear(plan: Plan, order: List[str], capture: Optional[str],
+                  catalog) -> Dict[str, str]:
+    """``matmul_bias`` node -> its ``featurize`` input, for each pair that
+    runs as one featurized-linear kernel (``kernels/featurized_linear``):
+    the featurize node's one consumer is a one-column ``matmul_bias``, it
+    is neither the plan's output nor the captured node, and its
+    featurizers, the weights and its input columns' dtypes (from the
+    catalog's schemas, ``_column_dtypes``) are ones the kernel takes
+    (``fusable``).  Every other plan keeps the featurize node's matrix."""
+    from ..kernels.featurized_linear.ops import fusable
+    pairs: Dict[str, str] = {}
+    for nid in order:
+        n = plan.nodes[nid]
+        if n.op != "featurize" or nid in (plan.output, capture):
+            continue
+        users = plan.consumers(nid)
+        if len(users) != 1:
+            continue
+        mm = plan.nodes[users[0]]
+        if mm.op == "matmul_bias" and mm.inputs == [nid] and fusable(
+                n.attrs["featurizers"], mm.attrs["weights"],
+                mm.attrs["bias"],
+                _column_dtypes(plan, n.inputs[0], catalog)):
+            pairs[mm.id] = nid
+    return pairs
+
+
+def _stage(nodes, order, config: "ExecutionConfig", device: torch.device,
+           fused: Dict[str, str]) -> Dict[str, Any]:
     """Per-node constants placed on ``device``: bound featurizers, model
-    scorers, ensemble matrices, weights.  Done once per (plan, device)."""
+    scorers, ensemble matrices, weights, and the featurized-linear
+    kernel's operands of each ``fused`` pair (whose featurize node binds
+    nothing).  Done once per (plan, device)."""
     staged: Dict[str, Any] = {}
+    skipped = set(fused.values())
     for nid in order:
         n = nodes[nid]
         a = n.attrs
-        if n.op == "featurize":
+        if nid in skipped:
+            continue
+        if nid in fused:
+            from ..kernels.featurized_linear import ops as fl_ops
+            staged[nid] = fl_ops.prepare(
+                nodes[fused[nid]].attrs["featurizers"], a["weights"],
+                a["bias"], device)
+        elif n.op == "featurize":
             staged[nid] = [f.bind(device) for f in a["featurizers"]]
         elif n.op == "gather_features":
             staged[nid] = torch.as_tensor(
@@ -405,9 +466,18 @@ def compile_plan(plan: Plan, catalog,
     synchronized and the hook observes the node's wall time.  This is the
     EXPLAIN ANALYZE seam.
 
+    A ``featurize`` node whose one consumer is a one-column
+    ``matmul_bias`` runs with it as one featurized-linear kernel when the
+    kernel takes its featurizers, weights and input columns (their dtypes
+    from ``catalog``'s schemas; ``_fused_linear``): the
+    featurize node passes its input table through, its consumer scores
+    the raw columns, and no feature matrix is made.  The logits are
+    bitwise those of the unfused pair.
+
     ``fn(tables, trace=...)`` records one call into a request's trace
     (``serve/telemetry.py``) without syncing: an ``op.<op>`` span per node
-    (attribute ``nid``) under whatever span the caller holds open, and on
+    (attribute ``nid``, and ``kernel="featurized_linear"`` on a fused
+    ``matmul_bias``) under whatever span the caller holds open, and on
     a CUDA device an event at every node boundary.  Each span's
     ``device_ms`` (the stream's time from the node's boundary event to the
     next node's) is read by the closure's next call, once its own
@@ -428,13 +498,21 @@ def compile_plan(plan: Plan, catalog,
                   if nodes[nid].op in ("filter", "map")
                   and plan_params(plan, [nid])}
 
+    # featurize -> matmul_bias pairs scored by one kernel from the raw
+    # columns: the featurize node passes its table through, and its
+    # consumer's span names the kernel
+    fused = _fused_linear(plan, order, capture, catalog)
+    passed = set(fused.values())
+    span_attrs = {nid: {"kernel": "featurized_linear"} for nid in fused}
+    if fused:
+        from ..kernels.featurized_linear.ops import featurized_linear
     staged_by_device: Dict[torch.device, Dict[str, Any]] = {}
 
     def constants(device: torch.device) -> Dict[str, Any]:
         staged = staged_by_device.get(device)
         if staged is None:
             staged = staged_by_device[device] = _stage(nodes, order, config,
-                                                       device)
+                                                       device, fused)
         return staged
 
     home = getattr(catalog, "device", None)
@@ -469,7 +547,8 @@ def compile_plan(plan: Plan, catalog,
             ins = [env[i] for i in n.inputs]
             a = n.attrs
             if spans:
-                span = trace.span("op." + op, nid=nid)
+                span = trace.span("op." + op, nid=nid,
+                                  **span_attrs.get(nid, {}))
                 op_spans.append(span.__enter__())
                 if marks is not None:
                     marks.append(_mark(stream, pool))
@@ -522,8 +601,11 @@ def compile_plan(plan: Plan, catalog,
                 env[nid] = t.with_columns({a["name"]: vec})
             elif op == "featurize":
                 table = ins[0]
-                feats = [f(table.columns) for f in consts[nid]]
-                env[nid] = torch.cat(feats, dim=1)
+                if nid in passed:
+                    env[nid] = table
+                else:
+                    feats = [f(table.columns) for f in consts[nid]]
+                    env[nid] = torch.cat(feats, dim=1)
             elif op == "gather_features":
                 env[nid] = ins[0][:, consts[nid]]
             elif op == "predict_model":
@@ -538,6 +620,8 @@ def compile_plan(plan: Plan, catalog,
             elif op == "affine":
                 scale, offset = consts[nid]
                 env[nid] = ins[0] * scale + offset
+            elif op == "matmul_bias" and nid in fused:
+                env[nid] = featurized_linear(consts[nid], ins[0].columns)
             elif op == "matmul_bias":
                 # row by row: a row's bits never depend on its batch
                 from ..ml.linear import rowwise_matmul

@@ -24,7 +24,7 @@ __all__ = ["PEAK_FP32_FLOPS", "PEAK_BF16_FLOPS", "PEAK_INT8_OPS",
            "PEAK_BYTES_PER_S", "NVLINK_BYTES_PER_S",
            "INFINIBAND_BYTES_PER_S", "PEAKS", "report", "collecting",
            "flash_cost", "decode_cost", "wkv6_cost", "ssd_cost",
-           "tree_gemm_cost", "nbytes"]
+           "tree_gemm_cost", "featurized_linear_cost", "nbytes"]
 
 PEAK_FP32_FLOPS = 67e12          # float32 on the CUDA cores
 PEAK_BF16_FLOPS = 989e12         # bfloat16 / float16 on the tensor cores
@@ -122,3 +122,12 @@ def tree_gemm_cost(n: int, f: int, t: int, i: int, l: int, o: int
                     "fp32": 1.0 * n * t * (i + l)},
             "bytes": 4.0 * n * f + t * i * l
             + 4.0 * t * (l + 2 * i + l * o) + 4.0 * n * o}
+
+
+def featurized_linear_cost(n: int, row_bytes: int, n_one_hot: int,
+                           n_scaler: int) -> Dict[str, float]:
+    """A row's float32 operations: an add a one-hot column, a subtract, two
+    multiplies and an add a scaled column, and the bias; the columns
+    (``row_bytes`` a row) read once and the logit written once."""
+    return {"ops": {"fp32": 1.0 * n * (n_one_hot + 4 * n_scaler + 1)},
+            "bytes": 1.0 * n * (row_bytes + 4)}

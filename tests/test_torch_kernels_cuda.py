@@ -1,9 +1,10 @@
-"""The port's hand-written CUDA kernels (tree GEMM, flash attention with its
-log-sum-exp, decode attention, the WKV6 and SSD scans) against their plain
-torch versions, on the card, and the training path over them (the flash
-VJP, remat's launches, a repeatable step, the scan wrappers refusing a
-gradient when called directly, the scans' autograd Functions, RWKV-6 and
-Hymba train steps) and the wrappers' abstract ``meta`` route. A CUDA kernel
+"""The port's hand-written CUDA kernels (tree GEMM, the featurized linear
+scorer, flash attention with its log-sum-exp, decode attention, the WKV6
+and SSD scans) against their plain torch versions, on the card, and the
+training path over them (the flash VJP, remat's launches, a repeatable
+step, the scan wrappers refusing a gradient when called directly, the
+scans' autograd Functions, RWKV-6 and Hymba train steps) and the
+wrappers' abstract ``meta`` route. A CUDA kernel
 has no CPU mode, so every test here carries the ``cuda`` marker and skips
 (inside a fixture) where no card is present. The file imports no JAX, so it
 runs on a machine that has only the port:
@@ -19,6 +20,8 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.decode_attention import \
     split_layout
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.featurized_linear import ops as fl_ops
+from repro_torch.kernels.featurized_linear.ref import featurized_linear_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      attention_with_lse_ref)
@@ -115,6 +118,141 @@ def test_tree_gemm_kernel_rejects_cpu_ensemble_on_cuda_x(cuda_device):
     with pytest.raises(ValueError, match="on cpu"):
         tg_ops.tree_gemm(ens.to_device("cpu"),
                          torch.from_numpy(x).to(cuda_device))
+
+
+# -- the featurized linear scorer --------------------------------------------
+
+_FLIGHT_ROWS = 5_819_079        # the benchmark's flights table
+
+
+def _flights_operands(n, code_dtype, device, seed=0):
+    """The flights model's kept featurizers (40 origins, 40 destinations and
+    2 carriers out of 322, 322 and 14 codes, at scattered codes; taxi_out
+    and dep_hour scaled), its weights, and ``n`` rows of raw columns."""
+    from repro_torch.ml import OneHotEncoder, StandardScaler
+    rng = np.random.default_rng(seed)
+    enc = OneHotEncoder(["origin", "dest", "carrier"])
+    enc.categories = {c: np.sort(rng.choice(d, k, replace=False))
+                      .astype(np.int32)
+                      for c, d, k in (("origin", 322, 40), ("dest", 322, 40),
+                                      ("carrier", 14, 2))}
+    sc = StandardScaler(["taxi_out", "dep_hour"])
+    sc.mean, sc.std = np.float32([16.1, 13.2]), np.float32([8.9, 4.8])
+    w = rng.normal(1.0, 0.5, (84, 1)).astype(np.float32)
+    w[-2:] = rng.normal(0.0, 0.5, (2, 1))
+    cols = {"origin": rng.integers(-2, 330, n),
+            "dest": rng.integers(0, 322, n),
+            "carrier": rng.integers(0, 16, n),
+            "taxi_out": rng.gamma(4.0, 4.0, n).astype(np.float32),
+            "dep_hour": rng.integers(0, 24, n).astype(np.int32)}
+    for c in ("origin", "dest", "carrier"):
+        cols[c] = cols[c] % 2 == 0 if code_dtype == "bool" \
+            else cols[c].astype(np.int32)
+    return ([enc, sc], w, np.float32([-2.1]),
+            {k: torch.as_tensor(v, device=device) for k, v in cols.items()})
+
+
+def _bitwise(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 4097, _FLIGHT_ROWS])
+@pytest.mark.parametrize("code_dtype,offset", [
+    ("int32", 0), ("int32", 1), ("int32", 3), ("bool", 0), ("bool", 2)])
+def test_featurized_linear_kernel_matches_plain_bitwise(n, code_dtype,
+                                                        offset, cuda_device):
+    """The kernel against its plain version on the card, bitwise, at the
+    benchmark's row count and at edge sizes; ``offset`` > 0 starts every
+    column at an odd row, so the call takes the element-by-element
+    loads."""
+    feats, w, b, cols = _flights_operands(n + offset, code_dtype,
+                                          cuda_device, seed=n)
+    cols = {k: v[offset:] for k, v in cols.items()}
+    op = fl_ops.prepare(feats, w, b, cuda_device)
+    before = fl_ops.launches
+    got = fl_ops.featurized_linear(op, cols)
+    torch.cuda.synchronize()
+    assert fl_ops.launches == before + 1
+    want = featurized_linear_ref([cols[c] for c in op.columns], op.blocks,
+                                 op.table, op.bias)
+    assert got.shape == (n, 1) and got.is_cuda
+    assert _bitwise(got, want)
+
+
+@pytest.mark.cuda
+def test_featurized_linear_kernel_is_the_unfused_fold_at_5_8m_rows(
+        cuda_device):
+    """At 5,819,079 rows the kernel's logits are bitwise those of the
+    featurizers' matrix and ``rowwise_matmul`` on the card."""
+    from repro_torch.ml.linear import rowwise_matmul
+    feats, w, b, cols = _flights_operands(_FLIGHT_ROWS, "int32", cuda_device)
+    op = fl_ops.prepare(feats, w, b, cuda_device)
+    got = fl_ops.featurized_linear(op, cols)
+    x = torch.cat([f.transform(cols) for f in feats], dim=1)
+    want = rowwise_matmul(x, torch.as_tensor(w, device=cuda_device)) \
+        + torch.as_tensor(b, device=cuda_device)
+    assert _bitwise(got, want)
+
+
+@pytest.mark.cuda
+def test_featurized_linear_kernel_refuses_what_it_does_not_take(cuda_device):
+    feats, w, b, cols = _flights_operands(100, "int32", cuda_device)
+    op = fl_ops.prepare(feats, w, b, cuda_device)
+    before = fl_ops.launches
+    with pytest.raises(TypeError, match="float64"):
+        fl_ops.featurized_linear(op, {**cols, "taxi_out":
+                                      cols["taxi_out"].double()})
+    with pytest.raises(TypeError, match="int64"):
+        fl_ops.featurized_linear(op, {**cols, "origin":
+                                      cols["origin"].long()})
+    with pytest.raises(ValueError, match="on cpu"):
+        fl_ops.featurized_linear(op, {**cols, "dep_hour":
+                                      cols["dep_hour"].cpu()})
+    assert fl_ops.launches == before
+
+
+@pytest.mark.cuda
+def test_served_flights_queries_launch_featurized_linear_once_each(
+        cuda_device):
+    """The benchmark's two query shapes served on the card: each execution
+    launches the kernel exactly once, and the answers equal the unfused
+    plans' bitwise."""
+    from repro_torch.core import ModelStore
+    from repro_torch.data import flight_features
+    from repro_torch.relational.table import Table
+    from repro_torch.serve import PredictionService
+    fcols, fy = flight_features(300_000, seed=3)
+    pipe = _flight_pipeline(0.01, 100).fit(
+        {k: v[:20_000] for k, v in fcols.items()}, fy[:20_000])
+    store = ModelStore()
+    store.register_table("flights", Table.from_pydict(fcols))
+    store.register_model("delay", pipe)
+    sqls = ["SELECT origin, dest, PREDICT_PROBA(MODEL='delay') AS p "
+            "FROM flights WHERE taxi_out >= 15",
+            "SELECT dep_hour, AVG(__pred_0_delay) AS p FROM flights WHERE "
+            "PREDICT_PROBA(MODEL='delay') >= 0 AND distance >= 900 "
+            "GROUP BY dep_hour"]
+    svc = PredictionService(store, enable_result_cache=False)
+    before, runs = fl_ops.launches, svc.stats.batch_executions
+    got = [svc.run(q) for q in sqls + sqls]
+    torch.cuda.synchronize()
+    executions = svc.stats.batch_executions - runs
+    assert executions == 4
+    assert fl_ops.launches - before == executions
+    svc.close()
+    orig = fl_ops.fusable
+    fl_ops.fusable = lambda *a: False
+    try:
+        plain = PredictionService(store, enable_result_cache=False)
+        want = [plain.run(q) for q in sqls + sqls]
+        plain.close()
+    finally:
+        fl_ops.fusable = orig
+    for g, w_ in zip(got, want):
+        assert torch.equal(g.valid, w_.valid)
+        for k in w_.columns:
+            assert torch.equal(g.columns[k], w_.columns[k]), k
 
 
 # -- attention ------------------------------------------------------------
@@ -706,7 +844,10 @@ def test_operator_spans_account_for_an_execution_on_the_card(cuda_device):
     time from each node's boundary event to the next one's, read when the
     trace is read: over one warm execution at 2M flights they sum to
     80-100% of its ``execute`` span (the rest is host time before the
-    first event and after the last)."""
+    first event and after the last).  The query is the benchmark's
+    ``hourly_delay``, whose grouped mean keeps the card busy for most of
+    the execution; ``route_risk`` scores 2M rows in one featurized-linear
+    launch and is over before the host's own work around it."""
     from repro_torch.core import ModelStore
     from repro_torch.data import flight_features
     from repro_torch.relational.table import Table
@@ -718,8 +859,9 @@ def test_operator_spans_account_for_an_execution_on_the_card(cuda_device):
     store.register_table("flights", Table.from_pydict(fcols))
     store.register_model("delay", pipe)
     svc = PredictionService(store)
-    sql = ("SELECT origin, dest, PREDICT_PROBA(MODEL='delay') AS p "
-           "FROM flights WHERE taxi_out >= 15")
+    sql = ("SELECT dep_hour, AVG(__pred_0_delay) AS p FROM flights WHERE "
+           "PREDICT_PROBA(MODEL='delay') >= 0 AND distance >= 900 "
+           "GROUP BY dep_hour")
     for _ in range(3):
         svc.run(sql)
     tr = svc.traces()[-1]
