@@ -18,7 +18,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
-from . import layout
+from . import layout, modes
 from . import trace as trace_mod
 from .traffic import Request, requests, seed_rng, warm_buckets
 
@@ -411,6 +411,8 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
     gc.collect()
     phases["warm"] = time.monotonic() - t_start
     stats0 = prog.stats()
+    watch = modes.Watch()
+    watch.start()
     if traced:
         from torch.profiler import ProfilerActivity, profile, record_function
         acts = [ProfilerActivity.CPU]
@@ -427,6 +429,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
     records = _drive(prog, mix, seed, info, scale, t0, t_end)
     if device == "cuda":
         torch.cuda.synchronize()
+    watch.stop()
     t_last = max([r.done for r in records] + [t_end])
     dtrace = None
     if traced:
@@ -461,6 +464,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
     result["requests"] = [[r.req.query["name"], r.issued - t0, r.latency,
                            r.req.input_rows, r.ok] for r in records]
     result["setup_phases"] = phases
+    result["mode"] = _mode(run, watch)
     # the answers to the host, the program's state freed, then the check
     kept = [(r.req, _host(r.out)) for r in records if r.out is not None]
     for r in records:
@@ -489,6 +493,21 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
                    "failed": len(failures), "metrics": metrics, "device": dev,
                    "checks": checks})
     return result
+
+
+def _mode(run: Run, watch: modes.Watch) -> Dict[str, Any]:
+    """The run's mode record (``modes``): CPUs, collections, the
+    lane's grant order, per-shape times, the thresholds' pass shares."""
+    done = run.completed
+    lanes = []
+    for r in done:
+        lane = r.trace.find("lane_wait") if r.trace is not None else None
+        if lane is not None:
+            lanes.append((lane.start, lane.end))
+    return {**watch.record(),
+            "overtaken_share": modes.overtaken_share(lanes),
+            "shapes": modes.by_shape(done, execution_of, exec_spans(done)),
+            "pass_shares": modes.pass_shares(run.records, run.columns)}
 
 
 def exec_spans(records: List[Record]) -> Dict[float, Any]:

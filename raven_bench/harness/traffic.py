@@ -8,7 +8,9 @@ drawn by stratified sampling within the cycle: the cycle's draws of one
 query are (i + v) / c of the distribution for i = 0 .. c-1 in a shuffled
 order, v uniform in [0, 1), so every seed and every client covers the same
 spread of sizes and the seed changes their order and where each lands.
-Clients repeat their cycle, each time with new draws.
+Clients repeat their cycle, each time with new draws.  A ``uniform``
+threshold is drawn over the ``domain`` its mix states for the column, as
+TPC-H draws substitution parameters, never over the seed's data.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def _draw(query: Mapping, us: Dict[str, float], rng: np.random.Generator,
             binding[p["names"][0]] = start
             binding[p["names"][1]] = start + width
         elif p["kind"] == "uniform":
-            lo_v, hi_v = info["ranges"][p["column"]]
+            lo_v, hi_v = p["domain"]
             binding[p["name"]] = float(np.float32(lo_v + u * (hi_v - lo_v)))
         elif p["kind"] == "rows":
             r_lo, r_hi = (max(1, int(round(x * scale))) for x in p["rows"])
@@ -75,8 +77,8 @@ def _draw(query: Mapping, us: Dict[str, float], rng: np.random.Generator,
 def requests(role: Mapping, client: int, seed: int, role_no: int,
              info: Mapping, scale: float = 1.0) -> Iterator[Request]:
     """The endless request sequence of one client of ``role``.  ``info``
-    holds ``ranges`` (column -> (min, max)), ``anchor_rows`` and
-    ``pool_rows``."""
+    holds ``ranges`` (column -> (min, max), for ``range`` widths),
+    ``anchor_rows`` and ``pool_rows``."""
     rng = seed_rng(seed, 1, role_no, client)
     mix = role["mix"]
     n = 0

@@ -47,6 +47,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     _environment()
     import torch
+    t_torch = time.monotonic() - T_START
     from raven_bench.harness import layout
     chips = int(layout.workload(layout.manifest(), args.workload)["chips"])
     found = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -64,7 +65,9 @@ def main(argv=None) -> int:
     log_ = {"workload": args.workload, "seed": args.seed,
             "trace": args.trace, "device": result["device"],
             "requests": result.pop("requests"),
-            "setup_phases": result.pop("setup_phases")}
+            "setup_phases": {"torch": t_torch,
+                             **result.pop("setup_phases")},
+            "mode": result.pop("mode")}
     if args.trace:
         log_["breakdown"] = result["breakdown"]
         log_["device_seconds"] = result.pop("device_seconds")

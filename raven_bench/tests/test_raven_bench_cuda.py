@@ -26,6 +26,6 @@ def test_cell_on_the_card(card, name):
                       device="cuda", scale=0.05)
     assert r["correct"], r["checks"]
     assert r["device"]["busy_s"] > 0
-    assert 0 <= r["metrics"]["device_idle_share"]["value"] < 100
+    assert 0 <= held_cells.reading(r["metrics"], "device_idle_share") < 100
     if "tree_gemm_roofline" in r["metrics"]:
         assert 0 < r["metrics"]["tree_gemm_roofline"]["value"] <= 100

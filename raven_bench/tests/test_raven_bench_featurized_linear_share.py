@@ -9,6 +9,7 @@ import time
 import pytest
 
 from raven_bench.harness import cell, layout
+from raven_bench.tests.held_cells import reading
 from repro_torch.serve import ManualClock, Trace
 
 T0, T_END = 10.0, 20.0
@@ -62,4 +63,4 @@ def test_a_traced_cpu_run_fuses_every_execution(name):
     r = cell.run_cell(name, 2**31 + 29, 1.0, True, time.monotonic(),
                       device="cpu", scale=0.005)
     assert r["correct"], r["checks"]
-    assert r["metrics"]["featurized_linear_share"]["value"] == 100.0
+    assert reading(r["metrics"], "featurized_linear_share") == 100.0

@@ -129,7 +129,7 @@ def test_traced_run_reports_the_per_layer_metrics(name):
                                                   "per_layer")}
     # no device work on the CPU: the device readers find nothing to read
     assert set(r["metrics"]) <= names
-    assert {"compiles_in_window", "execute_ms.p50"} <= set(r["metrics"])
-    assert r["metrics"]["compiles_in_window"]["value"] == 0
+    assert held_cells.reading(r["metrics"], "execute_ms.p50") >= 0
+    assert held_cells.reading(r["metrics"], "compiles_in_window") == 0
     assert r["device"]["window_s"] > 0
     assert set(r["breakdown"]) == {"device_ops", "idle_gaps"}

@@ -9,6 +9,7 @@ import time
 import pytest
 
 from raven_bench.harness import cell, layout
+from raven_bench.tests.held_cells import reading
 from repro_torch.serve import ManualClock, Trace
 
 T0, T_END = 10.0, 20.0
@@ -94,8 +95,8 @@ def test_a_traced_cpu_run_reads_the_lane_and_the_reuse(name):
                       device="cpu", scale=0.005)
     assert r["correct"], r["checks"]
     got = r["metrics"]
-    assert got["lane_wait_ms.p50"]["value"] >= 0
-    assert 0 <= got["result_reuse_share"]["value"] <= 100
+    assert reading(got, "lane_wait_ms.p50") >= 0
+    assert 0 <= reading(got, "result_reuse_share") <= 100
     # no card: the operators' device times are not there to read
-    assert "featurize_device_ms.p50" not in got
-    assert "matmul_bias_device_ms.p50" not in got
+    assert not [n for n in got if n.startswith(("featurize_device_ms.p50",
+                                                 "matmul_bias_device_ms.p50"))]

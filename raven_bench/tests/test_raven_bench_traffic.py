@@ -89,24 +89,63 @@ def test_online_scoring_rows_are_log_uniform_in_range():
             assert i - 0.01 <= v <= i + 1.01
 
 
+def _domain(name, key):
+    """The stated domain of parameter ``key`` in mix ``name``."""
+    for m in layout.traffic(name)["roles"][0]["mix"]:
+        for p in m.get("params", []):
+            if p.get("name") == key:
+                return p["domain"]
+    raise KeyError(key)
+
+
 @pytest.mark.parametrize("name, streams", [("delay_report", 4),
                                            ("delay_power", 1)])
 def test_delay_streams_as_tpch_runs_them(name, streams):
     """Both shapes equally often in every cycle, thresholds float32 and
-    uniform over the column's range, stratified within the cycle."""
+    uniform over the column's stated domain, stratified within the
+    cycle."""
     assert layout.traffic(name)["roles"][0]["clients"] == streams
+    assert _domain(name, "d") == [100.0, 3000.0]
+    assert _domain(name, "t") == [-10.0, 40.0]
     reqs = _take(name, k=50)
     for r in reqs:
         (key, v), = r.binding.items()
-        lo, hi = _info()["ranges"]["distance" if key == "d" else "taxi_out"]
+        lo, hi = _domain(name, key)
         assert lo <= v <= hi and np.float32(v) == v
     names = [r.query["name"] for r in reqs]
     for cyc in range(0, 50, 10):
         assert names[cyc:cyc + 10].count("hourly_delay") == 5
         assert names[cyc:cyc + 10].count("route_risk") == 5
-    d = sorted(r.binding["d"] for r in reqs[:10] if "d" in r.binding)
-    for i, v in enumerate(d):                # one draw in each fifth
-        assert i / 5 - 1e-6 <= (v - 100.0) / 2900.0 <= (i + 1) / 5 + 1e-6
+    for cyc in range(0, 50, 10):
+        for key in ("d", "t"):
+            lo, hi = _domain(name, key)
+            v = sorted(r.binding[key] for r in reqs[cyc:cyc + 10]
+                       if key in r.binding)
+            for i, x in enumerate(v):        # one draw in each fifth
+                assert i / 5 - 1e-6 <= (x - lo) / (hi - lo) <= (i + 1) / 5 \
+                    + 1e-6
+
+
+@pytest.mark.parametrize("name", ["delay_report", "delay_power"])
+def test_thresholds_follow_the_domain_not_the_seeds_data(name):
+    """The same seed draws the same thresholds whatever the table's own
+    least and most values are; a wider stated domain moves them."""
+    def take(info, mix=None):
+        mix = mix or layout.traffic(name)
+        gen = traffic.requests(mix["roles"][0], 0, SEED, 0, info)
+        return [r.binding for r in itertools.islice(gen, 40)]
+
+    other = _info()
+    other["ranges"] = {**other["ranges"], "distance": (31.0, 4983.0),
+                       "taxi_out": (-12.3, 41.7)}
+    assert take(_info()) == take(other)
+    wide = layout.traffic(name)
+    for m in wide["roles"][0]["mix"]:
+        for p in m["params"]:
+            p["domain"] = [2 * p["domain"][0] - p["domain"][1],
+                           p["domain"][1]]
+    moved = take(_info(), wide)
+    assert all(a != b for a, b in zip(take(_info()), moved))
 
 
 def test_mixed_has_two_analysts_and_sixteen_apps():
